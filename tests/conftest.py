@@ -64,3 +64,9 @@ def helios_jobs():
 def helios_cluster():
     from repro.core import make_cluster
     return make_cluster("helios")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips "
+        "without one")
