@@ -5,11 +5,12 @@ Run from anywhere with ``python3 chip_smoke.py``; it needs one CUDA card and
 the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
 
 1. device: require CUDA and print the card's name and power limit;
-2. build: compile the hand-written policy-MLP kernel from the checkout;
-3. kernel: hold the kernel against its plain torch version on the card
-   (atol 1e-5) at the queue depths the main path uses, and time both: the
-   device time per call (calls replayed from a CUDA graph) and the time per
-   call issued eagerly from Python, back to back (CUDA events);
+2. build: compile both hand-written kernels from the checkout (policy MLP
+   and runtime-predictor MLP), one ``nvcc`` each, started together;
+3. kernel: hold the policy-MLP kernel against its plain torch version on
+   the card (atol 1e-5) at the queue depths the main path uses, and time
+   both: the device time per call (calls replayed from a CUDA graph) and the
+   time per call issued eagerly from Python, back to back (CUDA events);
 4. main path: the RLTune decision loop over a 4096-job Philly trace
    (MILP placement, EASY backfill, the 2560-job queue window, greedy actor
    plus deep-window tail scoring), counting the kernel's launches;
@@ -17,10 +18,23 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
    with the plain version on the same device inputs and compare values and
    rankings;
 6. explore: sampled policy steps on the card;
-7. small: a 96-job Helios schedule on the card equals the CPU's.
+7. small: a 96-job Helios schedule on the card equals the CPU's;
+8. predict kernel: the same for the predictor-MLP kernel (random non-zero
+   head, atol 1e-5) at the batch sizes of the stream below;
+9. stream: the streaming service over a 10,000-job ``mispredict-storm``
+   stream with the prediction bench's settings, once blind and once with
+   predictor-assisted EASY backfill on the card, counting the predictor
+   kernel's launches;
+10. stream check: recompute the first 200 predictor calls of the stream
+    with the plain version on the same device inputs and weights;
+11. stream small: on 300-job ``mispredict-storm`` the assisted schedule on
+    the card equals the CPU's and a shadow predictor leaves it as with no
+    predictor; on 600-job ``flash-crowd`` the greedy actor (with its
+    deep-window scorer) and the assisted predictor together give the CPU's
+    schedule on the card.
 
-Then one JSON line describing the kernel (times, launches, bound), and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+Then one JSON line describing both kernels (times, launches, bounds), and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
@@ -30,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -40,6 +55,13 @@ QS = (256, 300, 2304, 4096, 16384)
 SHAPES = ((8, 64, 32), (8, 32, 16))
 MAIN_Q = 4096                    # the deepest tail bucket of the main path
 CHECK_DECISIONS = 200
+# predictor MLP: batch sizes of the stream (1 .. the 2560-job queue window;
+# 1103 is the 3,000-job stream's deepest batch) and the net 21 -> 24 -> 12 -> 2
+BS = (1, 8, 300, 1103, 2560, 16384)
+PREDICT_SHAPE = (21, 24, 12, 2)
+MAIN_B = 2560                    # the saturated queue window of the stream
+STREAM_JOBS = 10000
+CHECK_PREDICTS = 200
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -108,6 +130,48 @@ def bound(Q: int, n_live: int, F: int, H1: int, H2: int) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def predict_bound(B: int, F: int, H1: int, H2: int, Q: int) -> tuple[float, str]:
+    """Least time (ms) for the predictor MLP on the H100: its operations (2
+    per multiply-add) over the f32 peak, or every input read once and the
+    output written once over the memory rate."""
+    flops = 2.0 * (F * H1 + H1 * H2 + H2 * Q) * B
+    nbytes = 4.0 * (B * F + B * Q + F * H1 + H1 + H1 * H2 + H2 + H2 * Q + Q)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def signature(engine):
+    """The schedule signature of ``tests/test_predict.py``."""
+    jobs = tuple(sorted(
+        (j.job_id, round(j.submit_time, 6),
+         round(j.first_start_time if j.first_start_time is not None else -1,
+               6),
+         round(j.finish_time if j.finish_time is not None else -1, 6),
+         j.restarts)
+        for j in engine.completed))
+    return jobs, (engine.decisions, engine.milp_calls, engine.backfills,
+                  engine.restarts, engine.bf_reservations,
+                  engine.bf_overruns)
+
+
+def stream(num_jobs: int, predictor, scenario: str = "mispredict-storm",
+           prioritizer=None):
+    """One stream at the prediction bench's settings
+    (``benchmarks/bench_prediction.py``): ``pack``, rescan 60 s, samples
+    every hour, FCFS on declared estimates unless ``prioritizer`` is given.
+    Returns the ``StreamResult`` and the wall seconds."""
+    from repro_torch.core.policies import make_policy
+    from repro_torch.sched import PolicyPrioritizer, get_scenario, run_scenario
+    run = get_scenario(scenario).build(num_jobs, 0)
+    pri = prioritizer or PolicyPrioritizer(make_policy("fcfs",
+                                                       use_estimates=True))
+    t0 = time.perf_counter()
+    sr = run_scenario(run, allocator="pack", rescan_interval=60.0,
+                      sample_interval=3600.0, prioritizer=pri,
+                      predictor=predictor)
+    return sr, time.perf_counter() - t0
+
+
 def rank_agrees(kernel_logits, plain_logits, tol: float) -> bool:
     """The kernel's stable descending order, read through the plain logits,
     never puts a row ahead of one that the plain version scores more than
@@ -118,6 +182,226 @@ def rank_agrees(kernel_logits, plain_logits, tol: float) -> bool:
     seq = plain_logits[order].astype(np.float64)
     later_max = np.maximum.accumulate(seq[::-1])[::-1]
     return bool(np.all(later_max - seq <= tol))
+
+
+def predict_kernel_phase(dev) -> tuple[float, dict]:
+    """Phase 8: the predictor-MLP kernel against its plain version at every
+    batch size in ``BS`` (unit-scale weights, the head included: a zero
+    head would hide every error), timed as in phase 3.  Returns the largest
+    error and {B: (ms, plain_ms, bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import predict_mlp as qm
+    from repro_torch.kernels.ref import predict_mlp_ref
+
+    F, H1, H2, Q = PREDICT_SHAPE
+    q_err = 0.0
+    q_timings = {}
+    for B in BS:
+        rng = np.random.default_rng(B)
+
+        def t(*shape):
+            return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                                device=dev)
+        xq = t(B, F)
+        qp = [t(F, H1), t(H1), t(H1, H2), t(H2), t(H2, Q), t(Q)]
+        got = qm.predict_mlp(xq, *qp)
+        want = predict_mlp_ref(xq, *qp)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= ATOL, f"predict kernel vs plain at B={B}: max abs err "
+              f"{err:.3e} > {ATOL}")
+        q_err = max(q_err, err)
+        ms = graph_ms(lambda: qm.predict_mlp(xq, *qp))
+        plain_ms = graph_ms(lambda: predict_mlp_ref(xq, *qp))
+        call_ms = time_ms(lambda: qm.predict_mlp(xq, *qp))
+        plain_call_ms = time_ms(lambda: predict_mlp_ref(xq, *qp))
+        b_ms, b_by = predict_bound(B, F, H1, H2, Q)
+        q_timings[B] = (ms, plain_ms, b_ms, b_by)
+        print(f"predict kernel: B={B} F,H1,H2,Q={F},{H1},{H2},{Q} "
+              f"max_abs_err={err:.3e} device_us kernel={ms * 1e3:.3f} "
+              f"plain={plain_ms * 1e3:.3f} bound={b_ms * 1e3:.4f} ({b_by}); "
+              f"eager call_us kernel={call_ms * 1e3:.3f} "
+              f"plain={plain_call_ms * 1e3:.3f}")
+    return q_err, q_timings
+
+
+def predict_stream_phase(dev, num_jobs: int) -> dict:
+    """Phases 9-10, the slice's main path: a ``num_jobs``-job
+    ``mispredict-storm`` stream blind, then with predictor-assisted EASY
+    backfill on ``dev``, counting the predictor kernel's launches in the
+    assisted run; then the first ``CHECK_PREDICTS`` predictor calls
+    recomputed by the plain version on the same inputs and weights.
+    The assisted run wall-clocks the predictor's host methods
+    (``predict_quantiles`` with its ``_rows`` and ``_forward``, the weight
+    upload ``_device_params`` inside ``_forward``, and the training hooks).
+    Returns {"launches", "max_abs_err"}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, predict_mlp as qm
+    from repro_torch.kernels.ref import predict_mlp_ref
+    from repro_torch.predict import RuntimePredictor
+
+    keys = ("w1", "b1", "w2", "b2", "w3", "b3")
+    blind, blind_wall = stream(num_jobs, None)
+    pred = RuntimePredictor(assist=True, seed=0, device=dev)
+    record: list[tuple[torch.Tensor, dict, torch.Tensor]] = []
+    by_b: dict[int, int] = {}
+    spans: dict[str, list] = {}              # method -> [calls, seconds]
+    uploads = [0, None]                      # weight uploads, last copy
+    real_predict_mlp = ops.predict_mlp
+
+    def tapped_predict_mlp(x, params):
+        """Counts calls by batch size and keeps the inputs, weights and
+        outputs of the first CHECK_PREDICTS calls for the check."""
+        out = real_predict_mlp(x, params)
+        by_b[x.shape[0]] = by_b.get(x.shape[0], 0) + 1
+        if len(record) < CHECK_PREDICTS:
+            record.append((x.clone(), {k: params[k].clone() for k in keys},
+                           out.clone()))
+        return out
+
+    def timed(name):
+        fn = getattr(pred, name)
+        acc = spans.setdefault(name, [0, 0.0])
+
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t0
+        setattr(pred, name, wrapper)
+
+    for name in ("predict_quantiles", "_rows", "_forward", "_device_params",
+                 "on_submit", "on_finish"):
+        timed(name)
+    timed_params = pred._device_params
+
+    def counted_params():
+        out = timed_params()
+        if out is not uploads[1]:
+            uploads[0] += 1
+            uploads[1] = out
+        return out
+
+    pred._device_params = counted_params
+    ops.predict_mlp = tapped_predict_mlp
+    start = qm.launches
+    try:
+        assisted, wall = stream(num_jobs, pred)
+        torch.cuda.synchronize()
+    finally:
+        ops.predict_mlp = real_predict_mlp
+    launches = qm.launches - start
+    for name, sr, w in (("blind", blind, blind_wall),
+                        ("assisted", assisted, wall)):
+        e = sr.engine
+        waits = np.array([j.wait_time for j in sr.batch.jobs])
+        check(len(sr.batch.jobs) == num_jobs,
+              f"{name} stream completed {len(sr.batch.jobs)} of {num_jobs} "
+              "jobs")
+        print(f"stream: mispredict-storm {num_jobs} jobs seed 0, pack, "
+              f"rescan 60 s, {name}: completed={len(sr.batch.jobs)} "
+              f"wall_s={w:.3f} windows={sr.windows} "
+              f"wait_p50_h={np.percentile(waits, 50) / 3600.0:.4f} "
+              f"wait_p99_h={np.percentile(waits, 99) / 3600.0:.4f} "
+              f"backfills={e.backfills} bf_reservations={e.bf_reservations} "
+              f"bf_overruns={e.bf_overruns}")
+    check(assisted.engine.bf_reservations > 0,
+          "the assisted stream committed no predictor-gated reservation")
+    errors = getattr(assisted.engine.hooks, "errors", [])
+    check(not errors, f"hooks raised during the assisted stream: {errors[:3]}")
+    forwards = spans["_forward"][0]
+    check(launches >= forwards > 0,
+          f"predict_mlp launches {launches} < batched forwards {forwards}")
+    sizes = np.repeat(np.fromiter(by_b, int), list(by_b.values()))
+    hist: dict[str, int] = {}
+    for lo in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+        n = int(((sizes >= lo) & (sizes < 2 * lo)).sum())
+        if n:
+            hist[f"{lo}-{2 * lo - 1}"] = n
+    print(f"stream: assisted predictor mape={pred.mape():.6f} "
+          f"baseline_mape={pred.baseline_mape():.6f} "
+          f"train_steps={pred.train_steps} batched_forwards={forwards} "
+          f"launches={launches} rows={int(sizes.sum())} "
+          f"B_p50={np.percentile(sizes, 50):.0f} "
+          f"B_p99={np.percentile(sizes, 99):.0f} B_max={sizes.max()} "
+          f"weight_uploads={uploads[0]}")
+    print(f"stream: predictor calls by B {hist}")
+    print("stream: assisted wall " + " ".join(
+        f"{name}={n}x/{sec:.3f}s({100.0 * sec / wall:.1f}%)"
+        for name, (n, sec) in spans.items()) +
+        " (predict_quantiles holds _rows and _forward; _forward holds the "
+        "device calls and _device_params)")
+
+    worst = 0.0
+    with torch.no_grad():
+        for x, params, out in record:
+            plain = predict_mlp_ref(x, *(params[k] for k in keys))
+            worst = max(worst, (out - plain).abs().max().item())
+    check(len(record) == min(CHECK_PREDICTS, forwards),
+          f"recorded {len(record)} predictor calls")
+    check(worst <= ATOL, f"stream predictor outputs vs plain: max abs err "
+          f"{worst:.3e}")
+    rows = [x.shape[0] for x, _, _ in record]
+    print(f"stream check: the first {len(record)} predictor calls (B "
+          f"{min(rows)}-{max(rows)}, weights as uploaded at each call): "
+          f"max_abs_err={worst:.3e}")
+    return {"launches": launches, "max_abs_err": worst}
+
+
+def stream_small_phase(card) -> None:
+    """Phase 11: small streams on the card against the CPU.  300-job
+    ``mispredict-storm``: the assisted schedule on ``card`` equals the
+    CPU's, and a shadow predictor on ``card`` leaves the schedule of no
+    predictor.  600-job ``flash-crowd`` with the greedy actor (deep-window
+    scorer on) and the assisted predictor: both kernels run inside the
+    streaming loop, and the schedule equals the CPU's."""
+    from repro_torch.core import PPOAgent, RLPrioritizer
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels.batch_score import BucketedScorer
+    from repro_torch.predict import RuntimePredictor
+
+    sig = {}
+    for device in (card, "cpu"):
+        sr, _ = stream(300, RuntimePredictor(assist=True, seed=0,
+                                             device=device))
+        sig[str(device)] = signature(sr.engine)
+    got, want = sig[str(card)], sig["cpu"]
+    check(got == want, f"mispredict-storm 300 assisted: card {got[1]} != "
+          f"CPU {want[1]}")
+    check(got[1][4] > 0, "mispredict-storm 300 assisted: no reservation")
+    shadow, _ = stream(300, RuntimePredictor(assist=False, seed=0,
+                                             device=card))
+    none, _ = stream(300, None)
+    check(signature(shadow.engine) == signature(none.engine),
+          "mispredict-storm 300: the shadow predictor on the card changed "
+          "the schedule")
+    print(f"stream small: mispredict-storm 300 jobs: assisted on the card == "
+          f"CPU {got[1]}; shadow on the card == no predictor "
+          f"{signature(none.engine)[1]}")
+    sig, used = {}, {}
+    for device in (card, "cpu"):
+        agent = PPOAgent(device=device)
+        pri = RLPrioritizer(agent, explore=False,
+                            deep_scorer=BucketedScorer(agent.params["actor"]))
+        before = (pm.launches, qm.launches)
+        sr, _ = stream(600, RuntimePredictor(assist=True, seed=0,
+                                             device=device),
+                       scenario="flash-crowd", prioritizer=pri)
+        used[str(device)] = (pm.launches - before[0], qm.launches - before[1])
+        sig[str(device)] = signature(sr.engine)
+    got, want = sig[str(card)], sig["cpu"]
+    check(got == want, f"flash-crowd 600 greedy actor + assisted predictor: "
+          f"card {got[1]} != CPU {want[1]}")
+    check(min(used[str(card)]) > 0,
+          f"flash-crowd 600: kernel launches on the card {used[str(card)]}")
+    print(f"stream small: flash-crowd 600 jobs, greedy actor + deep scorer + "
+          f"assisted predictor: card == CPU {got[1]}; launches on the card "
+          f"policy_mlp={used[str(card)][0]} predict_mlp={used[str(card)][1]}")
+
 
 
 def main() -> int:
@@ -139,7 +423,7 @@ def main() -> int:
                                   Simulator, generate_trace, make_cluster)
     from repro_torch.core.agent import policy_step, value
     from repro_torch.core.features import build_state
-    from repro_torch.kernels import ops, policy_mlp as pm
+    from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
     from repro_torch.kernels.batch_score import BucketedScorer
     from repro_torch.kernels.ref import policy_mlp_ref
 
@@ -153,9 +437,14 @@ def main() -> int:
     print(smi)
 
     # ----------------------------------------------------------- 2. build --
-    t_build = pm.build()
-    print(f"build: policy_mlp from {pm.SOURCE.relative_to(ROOT)} in "
-          f"{t_build:.2f} s -> {pm.library_path().relative_to(ROOT)}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [(mod, pool.submit(mod.build)) for mod in (pm, qm)]
+        for mod, fut in builds:
+            print(f"build: {mod.SOURCE.stem} from "
+                  f"{mod.SOURCE.relative_to(ROOT)} in {fut.result():.2f} s -> "
+                  f"{mod.library_path().relative_to(ROOT)}")
+    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s")
 
     # ------------------------------------------ 3. kernel vs plain version --
     gen = torch.Generator().manual_seed(0)
@@ -258,7 +547,7 @@ def main() -> int:
     jobs = generate_trace("philly", 4096, seed=0)
     sim = Simulator(spec, allocator="milp", backfill=True)
     ops.policy_mlp = tapped_policy_mlp
-    pm.launches = 0
+    pm.launches = qm.launches = 0
     t0 = time.perf_counter()
     try:
         res = sim.run_batch([j.clone_pending() for j in jobs], pri)
@@ -347,8 +636,19 @@ def main() -> int:
     print(f"small: helios 96 jobs seed 0, milp: the card's BatchResult equals "
           f"the CPU's {small[0]}")
 
+    # ------------------------------------------------- 8. predict kernel --
+    q_err, q_timings = predict_kernel_phase(dev)
+
+    # ------------------------------------------ 9-10. stream and its check --
+    pm.launches = qm.launches = 0
+    q = predict_stream_phase(dev, STREAM_JOBS)
+
+    # ---------------------------------------------------- 11. stream small --
+    stream_small_phase(dev)
+
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
+    q_ms, q_plain_ms, q_b_ms, q_b_by = q_timings[MAIN_B]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "policy_mlp",
@@ -361,6 +661,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
+        "library_ms": None,
+    }, {
+        "name": "predict_mlp",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/predict_mlp.cu",
+        "replaces": "src/repro/kernels/predict_mlp.py:37",
+        "launches": q["launches"],
+        "max_abs_err": max(q_err, q["max_abs_err"]),
+        "ms": q_ms,
+        "plain_ms": q_plain_ms,
+        "bound_ms": q_b_ms,
+        "bound_by": q_b_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

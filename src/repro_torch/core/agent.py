@@ -173,14 +173,15 @@ def greedy_step(net: ActorCritic, ov: torch.Tensor,
 # ------------------------------------------------------------------- agent ----
 
 
-def _resolve_device(device: torch.device | str | None) -> torch.device:
+def _resolve_device(device: torch.device | str | None,
+                    owner: str = "PPOAgent") -> torch.device:
     """``None`` means ``"cuda"``.  A CUDA device without CUDA raises (pass
     ``device="cpu"`` to run on the CPU); on CUDA, TF32 matmuls are turned
     off so f32 stays f32."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("PPOAgent: CUDA is not available; pass "
+            raise RuntimeError(f"{owner}: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -11,3 +11,11 @@ def policy_mlp_ref(x, w1, b1, w2, b2, w3, b3, mask):
     h = torch.tanh(h @ w2.float() + b2)
     logits = (h @ w3.float() + b3)[:, 0]
     return torch.where(mask > 0, logits, torch.full_like(logits, -1e9))
+
+
+def predict_mlp_ref(x, w1, b1, w2, b2, w3, b3):
+    """Quantile-head residuals: tanh(tanh(x w1 + b1) w2 + b2) w3 + b3.
+    (B, F) ... (H2, Q), (Q,) -> (B, Q) f32."""
+    h = torch.tanh(x.float() @ w1.float() + b1)
+    h = torch.tanh(h @ w2.float() + b2)
+    return h @ w3.float() + b3

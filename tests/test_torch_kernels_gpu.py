@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, policy_mlp as pm
+from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
 from repro_torch.kernels.batch_score import BucketedScorer
-from repro_torch.kernels.ref import policy_mlp_ref
+from repro_torch.kernels.ref import policy_mlp_ref, predict_mlp_ref
 
 ATOL = 1e-5
 
@@ -87,3 +87,75 @@ def test_bucketed_scorer_on_the_card(cuda_device):
                           torch.ones(2304, device=cuda_device)).cpu().numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     assert sc.compiled_buckets == (4096,)
+
+
+def _predict_case(B, F, H1, H2, Q, device, seed):
+    """Unit-scale inputs and weights, the head included (a zero head, as the
+    predictor initialises it, would hide every error)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=device)
+    params = {"w1": t(F, H1), "b1": t(H1), "w2": t(H1, H2), "b2": t(H2),
+              "w3": t(H2, Q), "b3": t(Q)}
+    return t(B, F), params
+
+
+_PARAM_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8, 300, 1103, 2560, 16384])
+@pytest.mark.parametrize("F,H1,H2,Q", [(21, 24, 12, 2), (5, 16, 7, 1)])
+def test_predict_mlp_kernel_matches_plain_version(cuda_device, B, F, H1, H2,
+                                                  Q):
+    x, params = _predict_case(B, F, H1, H2, Q, cuda_device, seed=B)
+    before = qm.launches
+    got = ops.predict_mlp(x, params)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1
+    want = predict_mlp_ref(x, *(params[k] for k in _PARAM_KEYS))
+    assert got.shape == (B, Q)
+    assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+def test_predict_mlp_kernel_rejects_bad_inputs(cuda_device):
+    x, params = _predict_case(64, 21, 24, 12, 2, cuda_device, seed=1)
+    flat = [params[k] for k in _PARAM_KEYS]
+    with pytest.raises(TypeError):
+        qm.predict_mlp(x.double(), *flat)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.predict_mlp(x.t().contiguous().t(), *flat)
+    with pytest.raises(ValueError, match="shape"):
+        qm.predict_mlp(x, *flat[:5], flat[5][:1])
+    with pytest.raises(ValueError, match="on cpu"):
+        qm.predict_mlp(x, *flat[:5], flat[5].cpu())
+    wide = _predict_case(64, 21, 24, 12, 3, cuda_device, seed=2)
+    with pytest.raises(ValueError, match="outside"):
+        qm.predict_mlp(wide[0], *(wide[1][k] for k in _PARAM_KEYS))
+
+
+@pytest.mark.gpu
+def test_runtime_predictor_on_the_card_matches_the_cpu(cuda_device):
+    """The same completions through a predictor on the card and one on the
+    CPU: identical training, and quantiles within rtol 1e-6 right after
+    every SGD step (the card's weight copy must follow each step)."""
+    from repro_torch.core import generate_trace
+    from repro_torch.predict import RuntimePredictor
+
+    jobs = generate_trace("helios", 120, seed=4)
+    preds = [RuntimePredictor(device=d) for d in ("cuda", "cpu")]
+    for k, job in enumerate(jobs):
+        for p in preds:
+            p.on_submit(job, job.submit_time)
+            if k >= 10:
+                p.on_finish(jobs[k - 10], jobs[k - 10].submit_time)
+        if k >= 10:
+            window = jobs[max(0, k - 40):k + 1]
+            for got, want in zip(preds[0].predict_quantiles(window),
+                                 preds[1].predict_quantiles(window)):
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert preds[0].mape() == preds[1].mape()
+    assert preds[0]._dev_params["w3"].device.type == "cuda"

@@ -8,6 +8,7 @@ BatchResult tuple and the same start/finish time for every job.  The
 logits agree within 1e-5 (tests/test_torch_agent.py); exact schedule
 identity additionally needs no near-tie to flip, which these runs show.
 """
+import ast
 import os
 import subprocess
 import sys
@@ -151,7 +152,11 @@ def test_inspector_prioritizer_identical():
 
 def test_port_imports_neither_jax_nor_repro():
     """Import the port and every one of its modules in a fresh interpreter:
-    no jax* and no repro.* module may be loaded."""
+    no jax* and no repro.* module may be loaded.  Then walk the syntax tree
+    of every source in the port: no ``import``/``from`` of jax* or
+    repro/repro.* at any depth (a lazy import inside a function, such as
+    the chaos imports of the service and the scenarios, never runs at
+    import time)."""
     code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -165,7 +170,10 @@ bad = sorted(m for m in sys.modules
              or m == "repro")
 print(len(names), bad)
 assert not bad, bad
-assert "repro_torch.kernels.policy_mlp" in names
+for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp",
+             "repro_torch.predict", "repro_torch.sched.service",
+             "repro_torch.chaos"):
+    assert name in names, name
 """
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
@@ -173,6 +181,24 @@ assert "repro_torch.kernels.policy_mlp" in names
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("[]")
+    # imports inside functions run only when called: read every source too
+    bad = []
+    root = os.path.join(REPO, "src", "repro_torch")
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            for node in ast.walk(ast.parse(open(path).read(), path)):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                bad += [f"{path}:{node.lineno} {m}" for m in mods
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
