@@ -5,8 +5,9 @@ Run from anywhere with ``python3 chip_smoke.py``; it needs one CUDA card and
 the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
 
 1. device: require CUDA and print the card's name and power limit;
-2. build: compile both hand-written kernels from the checkout (policy MLP
-   and runtime-predictor MLP), one ``nvcc`` each, started together;
+2. build (with 12.): compile all five hand-written kernels from the
+   checkout (policy MLP, runtime-predictor MLP, flash attention, SSD scan,
+   MoE router), one ``nvcc`` each, all started together;
 3. kernel: hold the policy-MLP kernel against its plain torch version on
    the card (atol 1e-5) at the queue depths the main path uses, and time
    both: the device time per call (calls replayed from a CUDA graph) and the
@@ -31,9 +32,29 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     the card equals the CPU's and a shadow predictor leaves it as with no
     predictor; on 600-job ``flash-crowd`` the greedy actor (with its
     deep-window scorer) and the assisted predictor together give the CPU's
-    schedule on the card.
+    schedule on the card;
+13. LM kernels: hold the flash-attention, SSD-scan and MoE-router kernels
+    against their plain versions on the card, at the attention, SSD and
+    router shapes of every registered config at full width, in bf16
+    (atol/rtol 2e-2) and f32 (2e-5 attention, 2e-3 SSD; router weights
+    1e-5 and indices equal where the k-th and (k+1)-th logits are more
+    than 1e-4 apart), and time each at the serve shape below (device time
+    from CUDA-graph replay), beside its plain version and, for attention,
+    ``scaled_dot_product_attention`` as a yardstick;
+14. LM serve: ``jamba-v0.1-52b`` cut to one 8-layer superblock at full
+    width, bf16, seeded random weights on the card: ``ServeEngine`` (batch
+    4) serves 8 requests of 2,048-token prompts and 32 new tokens each
+    through the kernel path, counting each kernel's launches; then a
+    profiled prefill and 4 decode steps give where the device time goes;
+15. LM check: the first batch again through the plain path
+    (``ModelImpl(attn="xla", ssd="xla", moe="xla")``) on the card: the
+    prefill logits agree within the reference's own bf16 tolerance (0.15,
+    ``tests/test_models_smoke.py``), each decode step's within its 0.2 up to
+    each row's first differing token (reported with its logit gap), with
+    the difference's RMS within a tenth of the logits' RMS; all logits are
+    finite.
 
-Then one JSON line describing both kernels (times, launches, bounds), and as
+Then one JSON line describing all five kernels (times, launches, bounds), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  It imports nothing of JAX or of the ``repro`` package.
 """
@@ -403,6 +424,481 @@ def stream_small_phase(card) -> None:
           f"policy_mlp={used[str(card)][0]} predict_mlp={used[str(card)][1]}")
 
 
+# ------------------------------------------------------ LM serving slice --
+LM_ARCH = "jamba-v0.1-52b"
+LM_LAYERS = 8                    # one hybrid superblock, every width as published
+LM_BATCH = 4
+LM_PROMPT = 2048                 # a multiple of the 256-step SSD chunk
+LM_NEW = 32
+LM_REQUESTS = 8
+# bf16 kernel path vs bf16 plain path: the reference's own bf16 tolerances
+# for prefill and decode logits (tests/test_models_smoke.py), and the RMS
+# of the difference at most a tenth of the logits' RMS (unrelated logits
+# would give ~1.4)
+PREFILL_TOL, DECODE_TOL, REL_RMS_TOL = 0.15, 0.2, 0.1
+PEAK_BF16_FLOPS = 989e12
+LM_TOL = {"float32": {"flash_attention": 2e-5, "ssd_scan": 2e-3},
+          "bfloat16": {"flash_attention": 2e-2, "ssd_scan": 2e-2}}
+
+
+def lm_bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_bound(B, H, KV, L, D, window, dtype) -> tuple[float, str]:
+    """q.k and p.v over the (query, key) pairs the mask keeps (2 FLOP per
+    multiply-add each), against q, k, v and o moved once."""
+    import torch
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(L))
+    flops = 4.0 * B * H * D * pairs
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * B * L * D * (2 * H + 2 * KV)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return lm_bound(flops, nbytes, peak)
+
+
+def ssd_bound(B, L, H, P, N, chunk, dtype) -> tuple[float, str]:
+    """The chunked SSD's products at the reference's chunk: C.B^T per
+    (batch, chunk), the lower-triangular W.x, the state's share C.S and
+    the state update per (batch, head, chunk); against x, dt, B, C and y
+    moved once and the final state written once."""
+    import torch
+    Q = min(chunk, L)
+    nc = L // Q
+    flops = B * nc * (2.0 * Q * Q * N
+                      + H * (Q * (Q + 1) * P + 4.0 * Q * P * N))
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (size * (2 * B * L * H * P + 2 * B * L * N) + 4 * B * L * H
+              + 4 * H + 4 * B * H * P * N)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return lm_bound(flops, nbytes, peak)
+
+
+def router_bound(T, d, E, k, dtype) -> tuple[float, str]:
+    """x.W in f32 (W is f32), against x and W read once and the weights and
+    indices written once (the top-k passes are negligible)."""
+    import torch
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * T * d + 4 * d * E + 8 * T * k
+    return lm_bound(2.0 * T * d * E, nbytes, PEAK_F32_FLOPS)
+
+
+def router_check(x, w, k, got_w, got_i) -> float:
+    """Where the k-th and (k+1)-th plain logits are more than 1e-4 apart,
+    the kernel picks the same set of experts with weights within 1e-5 (in
+    its order); where every gap among the top k + 1 exceeds 1e-4, the same
+    experts in the same order.  Returns the weights' max abs error on the
+    rows held."""
+    import torch
+    from repro_torch.kernels.ref import moe_router_ref
+    want_w, want_i = moe_router_ref(x, w, k)
+    E = w.shape[1]
+    top = torch.sort(x.float() @ w, dim=-1, descending=True).values
+    gaps = top[:, :min(k + 1, E)].diff(dim=-1).neg()
+    set_sep = gaps[:, k - 1] > 1e-4 if k < E else torch.ones_like(top[:, 0],
+                                                                 dtype=bool)
+    ord_sep = (gaps > 1e-4).all(dim=-1)
+    check(bool(set_sep.float().mean() > 0.9) or len(set_sep) < 100,
+          f"router: only {int(set_sep.sum())} of {len(set_sep)} rows separated")
+    what = f"T={x.shape[0]} E={E} k={k}"
+    check(torch.equal(got_i[set_sep].sort(dim=-1).values,
+                      want_i[set_sep].sort(dim=-1).values),
+          f"router expert sets differ at {what}")
+    check(torch.equal(got_i[ord_sep], want_i[ord_sep]),
+          f"router expert order differs at {what}")
+    err = float((got_w - want_w)[set_sep].abs().max()) if bool(set_sep.any()) else 0.0
+    check(err <= 1e-5, f"router weights differ by {err:.3e} > 1e-5 at {what}")
+    return err
+
+
+def lm_kernel_phase(dev) -> dict:
+    """Phase 13.  Returns {kernel: row of the JSON record at the serve
+    shape}, each with the largest error over all its checks."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+    cfgs = [get_config(a) for a in ALL_ARCHS]
+    lm = get_config(LM_ARCH)
+    rows = {}
+
+    # -- flash attention: every registered (H, KV, D, window), bf16 and f32;
+    # timed at the serve shape
+    main = (LM_BATCH, lm.num_heads, lm.num_kv_heads, LM_PROMPT, lm.head_dim_,
+            lm.window)
+    shapes = {main}
+    for c in cfgs:
+        if c.family != "ssm":
+            L = 4608 if c.window else 1000
+            shapes.add((1, c.num_heads, c.num_kv_heads, L, c.head_dim_, c.window))
+    err_max = 0.0
+    for B, H, KV, L, D, win in sorted(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn((B, n, L, D), dtype) for n in (H, KV, KV))
+            got = fa.flash_attention(q, k, v, causal=True, window=win)
+            want = flash_attention_ref(q, k, v, causal=True, window=win)
+            tol = LM_TOL[str(dtype).split(".")[1]]["flash_attention"]
+            err = float((got.float() - want.float()).abs().max())
+            bad = ((got.float() - want.float()).abs()
+                   > tol + tol * want.float().abs()).sum().item()
+            check(bad == 0, f"flash_attention {(B, H, KV, L, D, win)} {dtype}: "
+                  f"{bad} elements outside {tol} (max abs err {err:.3e})")
+            err_max = max(err_max, err)
+            line = (f"lm kernel: flash_attention B,H,KV,L,D,window="
+                    f"{B},{H},{KV},{L},{D},{win} {dtype} max_abs_err={err:.3e}")
+            if (B, H, KV, L, D, win) == main and dtype == torch.bfloat16:
+                ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                              calls=2, replays=3)
+                plain_ms = graph_ms(lambda: flash_attention_ref(q, k, v),
+                                    calls=2, replays=3)
+                # the yardstick: SDPA on the grouped inputs, and on k, v
+                # repeated to H heads beforehand (the faster one is kept)
+                kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+                gqa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), calls=5,
+                    replays=5)
+                rep_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True), calls=5, replays=5)
+                lib_ms = min(gqa_ms, rep_ms)
+                sd = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+                del kr, vr
+                b_ms, b_by = flash_bound(B, H, KV, L, D, win, dtype)
+                rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               library_ms=lib_ms)
+                line += (f" device_us kernel={ms * 1e3:.1f} plain="
+                         f"{plain_ms * 1e3:.1f} sdpa_gqa={gqa_ms * 1e3:.1f} "
+                         f"sdpa_repeated_kv={rep_ms * 1e3:.1f} "
+                         f"bound={b_ms * 1e3:.1f} ({b_by}); sdpa vs plain "
+                         f"max_abs_err={float((sd.float() - want.float()).abs().max()):.3e}")
+            print(line)
+            del q, k, v, got, want
+    rows["flash_attention"]["max_abs_err"] = err_max
+
+    # -- SSD scan: the serve shape (Jamba, N 16) and mamba2-780m's (N 128),
+    # the latter from an initial state, also shorter than a chunk
+    main = (LM_BATCH, LM_PROMPT, lm.ssm_heads, lm.ssm_head_dim, lm.ssm_state)
+    m2 = get_config("mamba2-780m")
+    cases = [(main, False),
+             ((1, LM_PROMPT, m2.ssm_heads, m2.ssm_head_dim, m2.ssm_state), True),
+             ((1, 200, m2.ssm_heads, m2.ssm_head_dim, m2.ssm_state), True)]
+    err_max = 0.0
+    for (B, L, H, P, N), init in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            xh = randn((B, L, H, P), dtype, 0.5)
+            dt = F.softplus(randn((B, L, H)))
+            A = -torch.exp(randn((H,), scale=0.3))
+            Bs, Cs = randn((B, L, N), dtype, 0.3), randn((B, L, N), dtype, 0.3)
+            S0 = randn((B, H, P, N), scale=0.3) if init else None
+            y, S = ss.ssd_scan(xh, dt, A, Bs, Cs, S0)
+            y_want, S_want = ssd_scan_ref(xh, dt, A, Bs, Cs, S0)
+            tol = LM_TOL[str(dtype).split(".")[1]]["ssd_scan"]
+            for name, g, w, t in (("y", y.float(), y_want.float(), tol),
+                                  ("state", S, S_want, 2e-3)):
+                bad = ((g - w).abs() > t + t * w.abs()).sum().item()
+                check(bad == 0, f"ssd_scan {(B, L, H, P, N)} {dtype} {name}: "
+                      f"{bad} elements outside {t}")
+            err = max(float((y.float() - y_want.float()).abs().max()),
+                      float((S - S_want).abs().max()))
+            err_max = max(err_max, err)
+            line = (f"lm kernel: ssd_scan B,L,H,P,N={B},{L},{H},{P},{N} "
+                    f"init_state={init} {dtype} max_abs_err={err:.3e}")
+            if (B, L, H, P, N) == main and dtype == torch.bfloat16:
+                ms = graph_ms(lambda: ss.ssd_scan(xh, dt, A, Bs, Cs),
+                              calls=5, replays=5)
+                plain_ms = graph_ms(lambda: ssd_scan_ref(xh, dt, A, Bs, Cs),
+                                    calls=1, replays=3)
+                b_ms, b_by = ssd_bound(B, L, H, P, N, lm.ssm_chunk, dtype)
+                rows["ssd_scan"] = dict(ms=ms, plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by,
+                                        library_ms=None)
+                line += (f" device_us kernel={ms * 1e3:.1f} plain="
+                         f"{plain_ms * 1e3:.1f} bound={b_ms * 1e3:.1f} ({b_by})")
+            print(line)
+            del xh, dt, Bs, Cs, y, y_want
+    rows["ssd_scan"]["max_abs_err"] = err_max
+
+    # -- MoE router: every registered (d, E, k), decode and prefill sizes
+    err_max = 0.0
+    routers = sorted({(c.d_model, c.num_experts, c.experts_per_token)
+                      for c in cfgs if c.num_experts})
+    for d, E, k in routers:
+        for T in (LM_BATCH, LM_BATCH * LM_PROMPT):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = randn((T, d), dtype)
+                w = randn((d, E), scale=0.1 / np.sqrt(d))
+                got_w, got_i = mr.moe_router(x, w, k)
+                err = router_check(x, w, k, got_w, got_i)
+                err_max = max(err_max, err)
+                line = (f"lm kernel: moe_router T,d,E,k={T},{d},{E},{k} "
+                        f"{dtype} max_abs_err={err:.3e}")
+                if (d, E, k) == (lm.d_model, lm.num_experts,
+                                 lm.experts_per_token) and dtype == torch.bfloat16:
+                    from repro_torch.kernels.ref import moe_router_ref
+                    ms = graph_ms(lambda: mr.moe_router(x, w, k))
+                    plain_ms = graph_ms(lambda: moe_router_ref(x, w, k))
+                    b_ms, b_by = router_bound(T, d, E, k, dtype)
+                    if T == LM_BATCH * LM_PROMPT:
+                        rows["moe_router"] = dict(ms=ms, plain_ms=plain_ms,
+                                                  bound_ms=b_ms, bound_by=b_by,
+                                                  library_ms=None)
+                    line += (f" device_us kernel={ms * 1e3:.2f} plain="
+                             f"{plain_ms * 1e3:.2f} bound={b_ms * 1e3:.3f} "
+                             f"({b_by})")
+                print(line)
+    rows["moe_router"]["max_abs_err"] = err_max
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_prompts(vocab: int) -> list[list[int]]:
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(1, vocab, size=LM_PROMPT)]
+            for _ in range(LM_REQUESTS)]
+
+
+def tap_engine(engine, record_rows: int):
+    """Wrap the engine's prefill and decode step: host-clock each one (a
+    synchronize on either side), keep the logits of the first batch on the
+    card, and count non-finite logits.  Returns the record dict."""
+    import torch
+    rec = {"prefill_s": [], "decode_s": [], "logits": [], "nonfinite": 0,
+           "batches": 0}
+    model, real_prefill, real_decode = engine.model, engine.model.prefill, \
+        engine._decode
+    V = model.cfg.vocab_size
+
+    def keep(logits):
+        rec["nonfinite"] += int((~torch.isfinite(logits[:, :V])).sum())
+        if rec["batches"] == 1 and len(rec["logits"]) < record_rows:
+            rec["logits"].append(logits.float().clone())
+
+    def prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["batches"] += 1
+        keep(logits)
+        return logits, cache
+
+    def decode(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits, cache = real_decode(*a)
+        torch.cuda.synchronize()
+        rec["decode_s"].append(time.perf_counter() - t0)
+        keep(logits)
+        return tok, logits, cache
+
+    model.prefill, engine._decode = prefill, decode
+    return rec
+
+
+def profile_where_time_goes(model, params, engine, prompts) -> None:
+    """Device time by kernel over one profiled prefill of the first batch
+    and 4 decode steps after it (torch.profiler; CUDA events are the
+    fallback measurement if the profiler sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.tensor(prompts[:LM_BATCH], dtype=torch.int32,
+                        device=model.device)
+
+    def table(prof, wall_s, label):
+        rows = []                       # device-side events: kernels, copies
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0)
+            if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+                rows.append((t, e.key, e.count))
+        total = sum(t for t, _, _ in rows)
+        if total <= 0:
+            print(f"where: {label}: the profiler saw no device time "
+                  "(not measured)")
+            return
+        rows.sort(reverse=True)
+        ours = {n: 0.0 for n in ("flash_attention_kernel", "ssd_scan_kernel",
+                                 "moe_router_kernel")}
+        gemm = 0.0
+        for t, key, _ in rows:
+            for n in ours:
+                if n in key:
+                    ours[n] += t
+            if any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
+                                               "nvjet", "gemv")):
+                gemm += t
+        print(f"where: {label}: wall_ms={wall_s * 1e3:.3f} "
+              f"device_busy_ms={total / 1e3:.3f} "
+              f"idle_share={max(0.0, 1 - total / 1e3 / (wall_s * 1e3)):.3f} "
+              + " ".join(f"{n.removesuffix('_kernel')}_ms={t / 1e3:.3f}"
+                         f"({100 * t / total:.1f}%)" for n, t in ours.items())
+              + f" gemm_ms={gemm / 1e3:.3f}({100 * gemm / total:.1f}%)")
+        for t, key, n in rows[:8]:
+            print(f"where: {label}:   {t / 1e3:9.3f} ms {100 * t / total:5.1f}% "
+                  f"x{n:<5d} {key[:90]}")
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, toks, pad_to=engine.S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        table(prof, wall, f"prefill (B {LM_BATCH} x {LM_PROMPT})")
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                logits, cache = model.decode_step(params, tok, cache)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        table(prof, wall, f"decode (4 steps of B {LM_BATCH})")
+
+
+def lm_serve_phase(dev) -> dict:
+    """Phases 14 and 15, the slice's main path and its check.  Returns the
+    launches of each LM kernel in the served run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import ModelImpl
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"lm serve: {LM_ARCH} cut to {LM_LAYERS} layers, "
+          f"full width, {cfg.dtype}: {model.param_count() / 1e9:.3f} B "
+          f"params ({model.active_param_count() / 1e9:.3f} B active), "
+          f"seeded init on the card in {init_s:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = lm_prompts(cfg.vocab_size)
+    max_len = LM_PROMPT + LM_NEW
+    engine = ServeEngine(model, params, batch_size=LM_BATCH, max_len=max_len,
+                         device=dev)
+    # warm-up (cuBLAS handles and heuristics, the allocator): a short batch
+    engine.run([Request(req_id=i, prompt=p[:256], max_new_tokens=2)
+                for i, p in enumerate(prompts[:LM_BATCH])])
+    rec = tap_engine(engine, LM_NEW)
+    reqs = [Request(req_id=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    pm.launches = qm.launches = fa.launches = ss.launches = mr.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches,
+                "moe_router": mr.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = LM_REQUESTS // LM_BATCH
+    n_super = cfg.num_layers // cfg.attn_period
+    n_moe = n_super * sum(1 for j in range(cfg.attn_period)
+                          if j % cfg.moe_period == 1)
+    want = {"flash_attention": n_batches * n_super,
+            "ssd_scan": n_batches * n_super * (cfg.attn_period - 1),
+            "moe_router": n_moe * n_batches * (1 + (LM_NEW - 1))}
+    check(all(n > 0 for n in launches.values()),
+          f"an LM kernel was not launched on the main path: {launches}")
+    check(launches == want, f"LM kernel launches {launches}, expected {want}")
+    check(len(done) == LM_REQUESTS and all(len(r.output) == LM_NEW
+                                           for r in done),
+          "not every request got its tokens")
+    check(rec["nonfinite"] == 0, f"{rec['nonfinite']} non-finite logits")
+    pre, dec = np.asarray(rec["prefill_s"]) * 1e3, np.asarray(rec["decode_s"]) * 1e3
+    new_tokens = sum(len(r.output) for r in done)
+    print(f"lm serve: {LM_REQUESTS} requests x {LM_PROMPT}-token prompts, "
+          f"{LM_NEW} new tokens each, batch {LM_BATCH}, max_len {max_len}: "
+          f"wall_s={wall:.3f} prefill_ms={' '.join(f'{x:.2f}' for x in pre)} "
+          f"decode_ms_per_step mean={dec.mean():.3f} p50="
+          f"{np.percentile(dec, 50):.3f} p99={np.percentile(dec, 99):.3f} "
+          f"steps={len(dec)} tokens_per_s={new_tokens / wall:.1f} "
+          f"prefill_tokens_per_s={LM_BATCH * LM_PROMPT * len(pre) / pre.sum() * 1e3:.1f} "
+          f"decode_tokens_per_s={LM_BATCH * len(dec) / dec.sum() * 1e3:.1f} "
+          f"max_memory_allocated_GiB={peak / 2**30:.2f}")
+    print(f"lm serve: launches {launches} (expected {want}); other kernels "
+          f"policy_mlp={pm.launches} predict_mlp={qm.launches}")
+    print(f"lm serve: first outputs {[r.output[:8] for r in done[:2]]}")
+    profile_where_time_goes(model, params, engine, prompts)
+
+    # -------------------------------------------------- 15. LM check --
+    xla = build_model(cfg, impl=ModelImpl(attn="xla", ssd="xla", moe="xla"),
+                      device=dev)
+    x_engine = ServeEngine(xla, params, batch_size=LM_BATCH, max_len=max_len,
+                           device=dev)
+    x_rec = tap_engine(x_engine, LM_NEW)
+    x_done = x_engine.run([Request(req_id=i, prompt=p, max_new_tokens=LM_NEW)
+                           for i, p in enumerate(prompts[:LM_BATCH])])
+    check(x_rec["nonfinite"] == 0, f"{x_rec['nonfinite']} non-finite logits "
+          "on the plain path")
+    V = cfg.vocab_size
+    k_logits, x_logits = rec["logits"], x_rec["logits"]
+
+    def compare(kl, xl, tol, what):
+        """max |kl - xl| <= tol + tol |xl| and RMS(kl - xl) <= REL_RMS_TOL
+        RMS(xl); returns (max abs diff, relative RMS)."""
+        diff = (kl - xl).abs()
+        bad = int((diff > tol + tol * xl.abs()).sum())
+        rel = float((kl - xl).pow(2).mean().sqrt() / xl.pow(2).mean().sqrt())
+        check(bad == 0 and rel <= REL_RMS_TOL,
+              f"{what}: kernel vs plain path, {bad} logits outside {tol}, "
+              f"max abs diff {float(diff.max()):.4f}, relative RMS {rel:.4f}")
+        return float(diff.max()), rel
+
+    pre_err, pre_rel = compare(k_logits[0][:, :V], x_logits[0][:, :V],
+                               PREFILL_TOL, "prefill logits")
+    scale = float(x_logits[0][:, :V].pow(2).mean().sqrt())
+    worst, worst_rel, agree, notes = 0.0, 0.0, 0, []
+    for i in range(LM_BATCH):
+        a, b = done[i].output, x_done[i].output
+        for s in range(1, LM_NEW):      # step s is fed token s - 1
+            if a[s - 1] != b[s - 1]:
+                break
+            err, rel = compare(k_logits[s][i, :V], x_logits[s][i, :V],
+                               DECODE_TOL, f"row {i} decode step {s}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        for s in range(LM_NEW):
+            if a[s] != b[s]:
+                kl = k_logits[s][i, :V]
+                notes.append(f"row {i} token {s}: {a[s]} vs {b[s]}, kernel-path "
+                             f"logit gap {float(kl[a[s]] - kl[b[s]]):.5f}")
+                break
+            agree += 1
+    print(f"lm check: first batch through the plain path on the card: "
+          f"prefill logits max_abs_diff={pre_err:.5f} relative_rms={pre_rel:.5f} "
+          f"(logits RMS {scale:.4f}); decode logits up to each row's first "
+          f"differing token max_abs_diff={worst:.5f} relative_rms="
+          f"{worst_rel:.5f} (tolerances {PREFILL_TOL} / {DECODE_TOL} abs+rel, "
+          f"{REL_RMS_TOL} relative RMS); greedy tokens agree on {agree} of "
+          f"{LM_BATCH * LM_NEW} up to each row's first near-tie: "
+          f"{notes or 'none'}; all logits finite")
+    return launches
+
 
 def main() -> int:
     import numpy as np
@@ -423,7 +919,9 @@ def main() -> int:
                                   Simulator, generate_trace, make_cluster)
     from repro_torch.core.agent import policy_step, value
     from repro_torch.core.features import build_state
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
     from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.batch_score import BucketedScorer
     from repro_torch.kernels.ref import policy_mlp_ref
 
@@ -436,15 +934,16 @@ def main() -> int:
           f" python {sys.version.split()[0]}")
     print(smi)
 
-    # ----------------------------------------------------------- 2. build --
+    # ------------------------------------------------- 2. and 12. build --
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [(mod, pool.submit(mod.build)) for mod in (pm, qm)]
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        builds = [(mod, pool.submit(mod.build))
+                  for mod in (pm, qm, fa, ss, mr)]
         for mod, fut in builds:
             print(f"build: {mod.SOURCE.stem} from "
                   f"{mod.SOURCE.relative_to(ROOT)} in {fut.result():.2f} s -> "
                   f"{mod.library_path().relative_to(ROOT)}")
-    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s")
+    print(f"build: all five kernels in {time.perf_counter() - t0:.2f} s")
 
     # ------------------------------------------ 3. kernel vs plain version --
     gen = torch.Generator().manual_seed(0)
@@ -646,6 +1145,12 @@ def main() -> int:
     # ---------------------------------------------------- 11. stream small --
     stream_small_phase(dev)
 
+    # ---------------------------------------------------- 13. LM kernels --
+    lm_rows = lm_kernel_phase(dev)
+
+    # -------------------------------------------- 14-15. LM serve, check --
+    lm_launches = lm_serve_phase(dev)
+
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
     q_ms, q_plain_ms, q_b_ms, q_b_by = q_timings[MAIN_B]
@@ -674,7 +1179,22 @@ def main() -> int:
         "bound_ms": q_b_ms,
         "bound_by": q_b_by,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": lm_launches[name],
+        "max_abs_err": lm_rows[name]["max_abs_err"],
+        "ms": lm_rows[name]["ms"],
+        "plain_ms": lm_rows[name]["plain_ms"],
+        "bound_ms": lm_rows[name]["bound_ms"],
+        "bound_by": lm_rows[name]["bound_by"],
+        "library_ms": lm_rows[name]["library_ms"],
+    } for name, replaces in (
+        ("flash_attention", "src/repro/kernels/flash_attention.py:86"),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:62"),
+        ("moe_router", "src/repro/kernels/moe_router.py:43"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,14 @@
 """repro_torch: the RLTune scheduler on PyTorch and CUDA.
 
 Mirrors the ``repro`` package module for module.  Host logic (trace
-generation, cluster state, features, MILP placement, the event loop) is
-numpy/scipy carried over unchanged; the device side is the PPO actor/critic
-in torch, whose per-job actor MLP runs through a hand-written CUDA kernel
-(``repro_torch.kernels.policy_mlp``) on the GPU.
+generation, cluster state, features, MILP placement, the event loop, the
+streaming service) is numpy/scipy carried over unchanged; the device side is
+the PPO actor/critic and the runtime predictor's batched forward in torch,
+whose MLPs run through hand-written CUDA kernels
+(``repro_torch.kernels.policy_mlp``, ``predict_mlp``) on the GPU.  The LM
+workload stack serves (``configs``, ``models``, ``serve``,
+``launch.serve``: prefill and greedy decode for every registered config)
+with flash attention, the Mamba2 SSD scan and the MoE router as
+hand-written CUDA kernels (``kernels.flash_attention``, ``ssd_scan``,
+``moe_router``); LM training is not ported yet.
 """

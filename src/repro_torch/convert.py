@@ -7,7 +7,9 @@ gives them as nested numpy arrays under ``"params"``; these helpers copy
 that form into the port's modules and back, without transposes, so both
 packages compute the same function.  The runtime predictor's
 ``QuantileMLP.params`` (numpy w1/b1/w2/b2/w3/b3) is the same in both
-packages and is copied array by array.
+packages and is copied array by array.  ``lm_params_from_jax`` carries the
+reference ``LM``'s parameter tree (layers stacked on a leading dim) into the
+port's per-layer tensors.
 """
 from __future__ import annotations
 
@@ -62,3 +64,59 @@ def load_quantile_mlp_params(mlp, params: dict) -> None:
     for k, dst in mine.items():
         dst[...] = np.asarray(params[k], dtype=np.float32)
     mlp.updates += 1
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype.  bf16 arrays (numpy
+    arrays of ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    go through a ``uint16`` view of their bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_jax(params_np: dict, model, device=None) -> dict:
+    """The reference ``LM``'s parameters as the port's ``model`` holds them.
+
+    ``params_np`` is the reference's nested tree as numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``), whose layer stacks carry a
+    leading layer dim; each stack becomes the port's list of per-layer
+    dicts.  Tensors go to ``device`` (default ``model.device``).  Raises if
+    a key, shape or dtype differs from the port's schema."""
+    from repro_torch.models.layers import ParamSpec, stack_schema
+    dev = model.device if device is None else torch.device(device)
+
+    def check(src, sch, path: str) -> None:
+        if isinstance(sch, ParamSpec):
+            t = np.asarray(src)
+            if tuple(t.shape) != sch.shape:
+                raise ValueError(f"{path}: shape {t.shape}, expected {sch.shape}")
+            if t.dtype.name != str(sch.dtype).removeprefix("torch."):
+                raise TypeError(f"{path}: dtype {t.dtype}, expected {sch.dtype}")
+            return
+        if set(src) != set(sch):
+            raise ValueError(f"{path}: keys {sorted(src)} do not match "
+                             f"{sorted(sch)}")
+        for k in sch:
+            check(src[k], sch[k], f"{path}.{k}")
+
+    def take(src, i: int):
+        if isinstance(src, dict):
+            return {k: take(v, i) for k, v in src.items()}
+        return np.asarray(src)[i]
+
+    def walk(src, sch, path: str):
+        if isinstance(sch, ParamSpec):
+            check(src, sch, path)
+            return _tensor_from_numpy(src).to(dev)
+        if isinstance(sch, list):           # a stack of layers
+            check(src, stack_schema(sch[0], len(sch)), path)
+            return [walk(take(src, i), s, f"{path}[{i}]")
+                    for i, s in enumerate(sch)]
+        if set(src) != set(sch):
+            raise ValueError(f"{path}: keys {sorted(src)} do not match "
+                             f"{sorted(sch)}")
+        return {k: walk(src[k], sch[k], f"{path}.{k}") for k in sch}
+
+    return walk(params_np, model.schema(), "params")

@@ -1,0 +1,88 @@
+"""Binding and wrapper of the fused MoE-router CUDA kernel.
+
+``csrc/moe_router.cu`` holds the kernel (it replaces the Pallas kernel
+``repro/kernels/moe_router.py::moe_router``; its source note gives the
+bound and the design).  ``nvcc_build`` compiles it for ``sm_90a`` at first
+use and loads it with ``ctypes``; nothing is built when this module is
+imported.
+
+``moe_router`` takes CUDA tensors only and always launches the kernel;
+``launches`` counts those launches (the CPU path is ``ref.moe_router_ref``,
+chosen by ``ops.moe_router``).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
+
+#: kernel launches made by ``moe_router`` since the process started (or
+#: since a caller last reset it to 0)
+launches = 0
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_max_e = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    global _max_e
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.moe_router_launch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.moe_router_launch.restype = i32
+    lib.moe_router_max_e.argtypes = []
+    lib.moe_router_max_e.restype = i32
+    _max_e = lib.moe_router_max_e()
+
+
+_LIBRARY = CudaLibrary("moe_router", _declare)
+SOURCE = _LIBRARY.source
+
+
+def library_path() -> Path:
+    return _LIBRARY.path()
+
+
+def build() -> float:
+    """Compile the kernel library if it is not built yet and load it.
+
+    Returns the seconds spent (0.0 when it was already loaded)."""
+    return _LIBRARY.load()
+
+
+def moe_router(x: torch.Tensor, router_w: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Router on the GPU: x (T, d) f32 or bf16, router_w (d, E) f32 ->
+    (weights (T, k) f32, expert indices (T, k) int32).
+
+    Launches on the current stream of ``x``'s device without synchronising.
+    Raises on anything the kernel does not take."""
+    global launches
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_router kernel needs CUDA tensors, got {x.device}")
+    if x.dim() != 2 or router_w.dim() != 2:
+        raise ValueError("moe_router: x and router_w must be 2-D")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"moe_router: dtype {x.dtype}, expected torch.float32 "
+                        "or torch.bfloat16")
+    T, d = x.shape
+    E = router_w.shape[1]
+    dev = x.device
+    check_arg("moe_router", "x", x, (T, d), dev, x.dtype)
+    check_arg("moe_router", "router_w", router_w, (d, E), dev)
+    lib = _LIBRARY.lib
+    if min(T, d, E, k) < 1 or E > _max_e or k > E:
+        raise ValueError(f"moe_router: (T, d, E, k) = {(T, d, E, k)} outside "
+                         f"E <= {_max_e}, 1 <= k <= E")
+    weights = torch.empty((T, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((T, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.moe_router_launch(x.data_ptr(), router_w.data_ptr(),
+                                weights.data_ptr(), idx.data_ptr(), T, d, E,
+                                k, DTYPES[x.dtype], dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_router kernel launch failed: CUDA error {err}")
+    launches += 1
+    return weights, idx

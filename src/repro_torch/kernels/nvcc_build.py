@@ -95,15 +95,16 @@ class CudaLibrary:
 
 
 def check_arg(kernel: str, name: str, t: torch.Tensor,
-              shape: tuple[int, ...], device: torch.device) -> None:
-    """Raise unless tensor ``t`` is contiguous float32 of ``shape`` on
+              shape: tuple[int, ...], device: torch.device,
+              dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless tensor ``t`` is contiguous ``dtype`` of ``shape`` on
     ``device``: what every kernel wrapper checks before a launch."""
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
                          f"{device}")
-    if t.dtype != torch.float32:
+    if t.dtype != dtype:
         raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected "
-                        "torch.float32")
+                        f"{dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")

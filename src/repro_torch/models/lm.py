@@ -1,0 +1,418 @@
+"""Model assembly for all assigned families.
+
+- dense / moe / vlm : decoder-only transformer (GQA, optional SWA, MoE FFN)
+- ssm               : Mamba2 stack (no FFN)
+- hybrid            : Jamba superblocks (7 mamba + 1 attn per 8 layers,
+                      MoE on odd layers)
+- audio             : whisper-style encoder-decoder (frontends are stubs)
+
+Parameters and caches hold one entry per layer (per superblock for the
+hybrid family), and the layers run in a Python loop where the reference
+scans over stacked layers.  Apply modes: `forward` (logits of every
+position), `prefill` (forward + cache out), `decode_step` (1 token, cache
+in/out).  Training (`loss`, remat, chunked cross-entropy) is not ported.
+
+Positional encoding is RoPE everywhere, as in the reference (which replaces
+whisper's learned/sinusoidal embeddings by RoPE).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.core.agent import _resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (ParamSpec, apply_norm, embed_apply,
+                                       embed_schema, init_from_schema,
+                                       map_schema, mlp_apply, mlp_schema,
+                                       norm_schema, param_count,
+                                       unembed_apply)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelImpl:
+    """Which path each kernel-backed op takes.  The default is the kernel
+    path; the "xla" values are the reference's plain einsum paths, kept for
+    parity tests and the on-card cross-check."""
+    attn: str = "flash"      # flash | xla | xla_chunked
+    ssd: str = "kernel"      # kernel | xla
+    moe: str = "fused"       # fused | xla
+
+
+# ================================================================== blocks ======
+
+
+class Block:
+    """One transformer layer: mixer (attn | mamba | cross) + optional FFN."""
+
+    def __init__(self, cfg: ModelConfig, impl: ModelImpl, *, mixer: str,
+                 ffn: str, causal: bool = True, cross: bool = False):
+        self.cfg, self.impl = cfg, impl
+        self.mixer, self.ffn, self.causal, self.cross = mixer, ffn, causal, cross
+
+    # ----------------------------------------------------------- schema -----
+    def schema(self) -> dict:
+        cfg = self.cfg
+        sch: dict[str, Any] = {"norm1": norm_schema(cfg.d_model, cfg.norm)}
+        if self.mixer == "attn":
+            sch["attn"] = attn_mod.attn_schema(cfg)
+        else:
+            sch["mamba"] = mamba_mod.mamba_schema(cfg)
+        if self.cross:
+            sch["norm_x"] = norm_schema(cfg.d_model, cfg.norm)
+            sch["cross"] = attn_mod.attn_schema(cfg)
+        if self.ffn != "none":
+            sch["norm2"] = norm_schema(cfg.d_model, cfg.norm)
+            sch["ffn"] = (moe_mod.moe_schema(cfg) if self.ffn == "moe"
+                          else mlp_schema(cfg.d_model, cfg.d_ff,
+                                          cfg.activation, cfg.dtype))
+        return sch
+
+    def cache_schema(self, B: int, S: int) -> dict:
+        cfg = self.cfg
+        out: dict[str, Any] = {}
+        if self.mixer == "attn":
+            KV, hd = cfg.num_kv_heads, cfg.head_dim_
+            Sw = min(S, cfg.window) if cfg.window > 0 else S
+            kv = ("batch", "kv_heads", "kv_seq", "head_dim")
+            out["k"] = ParamSpec((B, KV, Sw, hd), kv, cfg.dtype, "zeros")
+            out["v"] = ParamSpec((B, KV, Sw, hd), kv, cfg.dtype, "zeros")
+        else:
+            dims = mamba_mod.mamba_dims(cfg)
+            out["conv"] = ParamSpec((B, cfg.ssm_conv - 1, dims["conv_dim"]),
+                                    ("batch", None, "ssm_inner"), cfg.dtype,
+                                    "zeros")
+            out["ssm"] = ParamSpec((B, dims["H"], dims["P"], dims["N"]),
+                                   ("batch", "ssm_inner", None, "ssm_state"),
+                                   torch.float32, "zeros")
+        if self.cross:
+            KV, hd = cfg.num_kv_heads, cfg.head_dim_
+            kv = ("batch", "kv_heads", "frames", "head_dim")
+            F = cfg.encoder_frames
+            out["xk"] = ParamSpec((B, KV, F, hd), kv, cfg.dtype, "zeros")
+            out["xv"] = ParamSpec((B, KV, F, hd), kv, cfg.dtype, "zeros")
+        return out
+
+    # ------------------------------------------------------------- apply ----
+    def _ffn_apply(self, p: dict, h: torch.Tensor, with_aux: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """FFN sublayer.  The MoE load-balancing aux loss is computed only
+        when ``with_aux`` (prefill and decode have no use for it)."""
+        cfg, aux = self.cfg, None
+        if self.ffn == "none":
+            return h, aux
+        hn = apply_norm(p["norm2"], h, cfg.norm)
+        if self.ffn == "moe":
+            if with_aux:
+                logits = hn.float() @ p["ffn"]["router"]
+                _, experts = moe_mod.router_topk(logits, cfg.experts_per_token)
+                aux = moe_mod.moe_aux_loss(logits, experts, cfg.num_experts)
+            out = moe_mod.moe_apply(p["ffn"], hn, cfg, self.impl.moe)
+        else:
+            out = mlp_apply(p["ffn"], hn, cfg.activation)
+        return h + out, aux
+
+    def full(self, p: dict, h: torch.Tensor, *, enc: torch.Tensor | None = None,
+             positions: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Full-sequence apply. Returns (h, moe_aux or None)."""
+        cfg = self.cfg
+        hn = apply_norm(p["norm1"], h, cfg.norm)
+        if self.mixer == "attn":
+            mix = attn_mod.attention(p["attn"], hn, cfg, causal=self.causal,
+                                     window=cfg.window, positions=positions,
+                                     impl=self.impl.attn)
+        else:
+            mix = mamba_mod.mamba_forward(p["mamba"], hn, cfg, self.impl.ssd)
+        h = h + mix
+        if self.cross:
+            hx = apply_norm(p["norm_x"], h, cfg.norm)
+            h = h + attn_mod.attention(p["cross"], hx, cfg, causal=False,
+                                       x_kv=enc, use_rope=False, impl="xla")
+        return self._ffn_apply(p, h, with_aux=True)
+
+    def prefill(self, p: dict, h: torch.Tensor, *,
+                enc: torch.Tensor | None = None, pad_to: int = 0
+                ) -> tuple[torch.Tensor, dict]:
+        """Full-sequence apply that also emits this layer's decode cache.
+        pad_to: allocate this many cache slots (> L leaves room to decode)."""
+        cfg = self.cfg
+        L = h.shape[1]
+        cache: dict[str, torch.Tensor] = {}
+        hn = apply_norm(p["norm1"], h, cfg.norm)
+        if self.mixer == "attn":
+            mix, (ks, vs) = attn_mod.attention(
+                p["attn"], hn, cfg, causal=self.causal, window=cfg.window,
+                impl=self.impl.attn, return_kv=True)
+            S_tot = max(pad_to, L)
+            S = min(S_tot, cfg.window) if cfg.window > 0 else S_tot
+            if cfg.window > 0:
+                # ring buffer: position t lives at slot t % S; keep the last S
+                first = max(L - S, 0)
+                idx = torch.arange(first, L, device=h.device) % S
+                for name, src in (("k", ks), ("v", vs)):
+                    ring = src.new_zeros(src.shape[:2] + (S,) + src.shape[3:])
+                    ring[:, :, idx] = src[:, :, first:]
+                    cache[name] = ring
+            else:
+                pad = S_tot - L
+                cache["k"] = torch.nn.functional.pad(ks, (0, 0, 0, pad))
+                cache["v"] = torch.nn.functional.pad(vs, (0, 0, 0, pad))
+            h = h + mix
+        else:
+            mix, (conv_tail, S_state) = mamba_mod.mamba_forward(
+                p["mamba"], hn, cfg, self.impl.ssd, return_state=True)
+            cache["conv"], cache["ssm"] = conv_tail, S_state
+            h = h + mix
+        if self.cross:
+            hx = apply_norm(p["norm_x"], h, cfg.norm)
+            mix, (xk, xv) = attn_mod.attention(
+                p["cross"], hx, cfg, causal=False, x_kv=enc, use_rope=False,
+                impl="xla", return_kv=True)
+            cache["xk"], cache["xv"] = xk, xv
+            h = h + mix
+        h, _ = self._ffn_apply(p, h)
+        return h, cache
+
+    def decode(self, p: dict, h: torch.Tensor, cache: dict, cache_len: int
+               ) -> tuple[torch.Tensor, dict]:
+        """One-token apply. h: (B, 1, d).  The KV cache is written in
+        place (see ``attention.decode_attention``)."""
+        cfg = self.cfg
+        new_cache = dict(cache)
+        hn = apply_norm(p["norm1"], h, cfg.norm)
+        if self.mixer == "attn":
+            mix, k2, v2 = attn_mod.decode_attention(
+                p["attn"], hn, cache["k"], cache["v"], cache_len, cfg,
+                window=cfg.window)
+            new_cache["k"], new_cache["v"] = k2, v2
+        else:
+            mix, conv2, ssm2 = mamba_mod.mamba_decode_step(
+                p["mamba"], hn, cache["conv"], cache["ssm"], cfg)
+            new_cache["conv"], new_cache["ssm"] = conv2, ssm2
+        h = h + mix
+        if self.cross:
+            hx = apply_norm(p["norm_x"], h, cfg.norm)
+            h = h + attn_mod.cross_decode(p["cross"], hx, cache["xk"],
+                                          cache["xv"], cfg)
+        h, _ = self._ffn_apply(p, h)
+        return h, new_cache
+
+
+# =================================================================== model ======
+
+
+def _hybrid_layout(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """(mixer, ffn) per layer inside one hybrid superblock."""
+    period = cfg.attn_period
+    out = []
+    for j in range(period):
+        mixer = "attn" if j == cfg.attn_offset else "mamba"
+        ffn = "moe" if (cfg.moe_period and j % cfg.moe_period == 1) else "mlp"
+        out.append((mixer, ffn))
+    return out
+
+
+class LM:
+    """Decoder LM / enc-dec wrapper over per-layer Block stacks.
+
+    ``device`` (default ``"cuda"``) is where ``init`` and ``init_cache``
+    allocate; a CUDA device without CUDA raises (pass ``device="cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, impl: ModelImpl | None = None, *,
+                 device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.impl = impl or ModelImpl()
+        self.device = _resolve_device(device, "LM")
+        fam = cfg.family
+        mk = functools.partial(Block, cfg, self.impl)
+        if fam in ("dense", "vlm"):
+            self.blocks = [mk(mixer="attn", ffn="mlp")]
+            self.n_stack = cfg.num_layers
+        elif fam == "moe":
+            self.blocks = [mk(mixer="attn", ffn="moe")]
+            self.n_stack = cfg.num_layers
+        elif fam == "ssm":
+            self.blocks = [mk(mixer="mamba", ffn="none")]
+            self.n_stack = cfg.num_layers
+        elif fam == "hybrid":
+            assert cfg.num_layers % cfg.attn_period == 0
+            self.blocks = [mk(mixer=m, ffn=f) for m, f in _hybrid_layout(cfg)]
+            self.n_stack = cfg.num_layers // cfg.attn_period
+        elif fam == "audio":
+            self.enc_block = mk(mixer="attn", ffn="mlp", causal=False)
+            self.blocks = [mk(mixer="attn", ffn="mlp", cross=True)]
+            self.n_stack = cfg.num_layers
+        else:
+            raise ValueError(fam)
+
+    # ---------------------------------------------------------- schema ------
+    def _stack_entry(self, per_block) -> Any:
+        """One stack entry (a layer, or a hybrid superblock) built from
+        ``per_block(block)``."""
+        if len(self.blocks) == 1:
+            return per_block(self.blocks[0])
+        return {f"l{j}": per_block(b) for j, b in enumerate(self.blocks)}
+
+    def _layers(self) -> list[tuple[Block, str | None]]:
+        """(block, key) of every layer in one stack entry, in order (key
+        None: the entry is the layer itself)."""
+        if len(self.blocks) == 1:
+            return [(self.blocks[0], None)]
+        return [(b, f"l{j}") for j, b in enumerate(self.blocks)]
+
+    def schema(self) -> dict:
+        cfg = self.cfg
+        Vp = padded_vocab(cfg.vocab_size)
+        sch: dict[str, Any] = {
+            "embed": embed_schema(Vp, cfg.d_model, cfg.dtype),
+            "blocks": [self._stack_entry(Block.schema)
+                       for _ in range(self.n_stack)],
+            "final_norm": norm_schema(cfg.d_model, cfg.norm),
+        }
+        if not cfg.tie_embeddings:
+            sch["unembed"] = ParamSpec((Vp, cfg.d_model),
+                                       ("vocab", "embed_table"), cfg.dtype)
+        if cfg.family == "audio":
+            sch["encoder"] = {
+                "blocks": [self.enc_block.schema()
+                           for _ in range(cfg.encoder_layers)],
+                "final_norm": norm_schema(cfg.d_model, cfg.norm),
+            }
+        return sch
+
+    def init(self, seed: int = 0) -> dict:
+        """Random parameters on ``self.device`` from a generator seeded
+        with ``seed`` (the reference's std rule; not its random numbers)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return init_from_schema(gen, self.schema(), self.device)
+
+    def param_count(self) -> int:
+        return param_count(self.schema())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.num_experts and cfg.experts_per_token:
+            F = cfg.moe_d_ff or cfg.d_ff
+            per_expert = 3 * cfg.d_model * F
+            n_moe = self._num_moe_layers()
+            inactive = n_moe * (cfg.num_experts - cfg.experts_per_token) * per_expert
+            return total - inactive
+        return total
+
+    def _num_moe_layers(self) -> int:
+        cfg = self.cfg
+        if cfg.family == "moe":
+            return cfg.num_layers
+        if cfg.family == "hybrid":
+            return sum(f == "moe" for _, f in _hybrid_layout(cfg)) * self.n_stack
+        return 0
+
+    # --------------------------------------------------------- embedding ----
+    def _embed_in(self, params, tokens, patch_embeds=None):
+        h = embed_apply(params["embed"], tokens).to(self.cfg.dtype)
+        if self.cfg.family == "vlm" and patch_embeds is not None:
+            h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
+        return h
+
+    def _unembed(self, params, h):
+        table = params.get("unembed", params["embed"]["table"])
+        return unembed_apply(table, h, self.cfg.vocab_size)
+
+    # ----------------------------------------------------------- encoder ----
+    def _encode(self, params, audio_frames):
+        h = audio_frames.to(self.cfg.dtype)
+        for p in params["encoder"]["blocks"]:
+            h, _ = self.enc_block.full(p, h)
+        return apply_norm(params["encoder"]["final_norm"], h, self.cfg.norm)
+
+    # ------------------------------------------------------------ forward ---
+    def hidden_states(self, params, tokens, *, patch_embeds=None,
+                      audio_frames=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (h_final (B, L, d), total moe aux loss)."""
+        cfg = self.cfg
+        enc = self._encode(params, audio_frames) if cfg.family == "audio" else None
+        h = self._embed_in(params, tokens, patch_embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for entry in params["blocks"]:
+            for blk, key in self._layers():
+                h, a = blk.full(entry if key is None else entry[key], h, enc=enc)
+                if a is not None:
+                    aux = aux + a
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        return h, aux
+
+    def forward(self, params, tokens, *, patch_embeds=None, audio_frames=None
+                ) -> torch.Tensor:
+        """Full logits (B, L_text, vocab); vlm: logits for text positions."""
+        h, _ = self.hidden_states(params, tokens, patch_embeds=patch_embeds,
+                                  audio_frames=audio_frames)
+        if self.cfg.family == "vlm" and patch_embeds is not None:
+            h = h[:, patch_embeds.shape[1]:, :]
+        return self._unembed(params, h)
+
+    # ------------------------------------------------------------- caches ---
+    def cache_schema(self, B: int, S: int) -> dict:
+        return {"blocks": [self._stack_entry(
+            lambda b: b.cache_schema(B, S)) for _ in range(self.n_stack)]}
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """Zero caches on ``self.device``; ``len`` (tokens already in the
+        cache) is a Python int."""
+        blocks = map_schema(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+            self.cache_schema(B, S))["blocks"]
+        return {"blocks": blocks, "len": 0}
+
+    # ------------------------------------------------------------ prefill ---
+    def prefill(self, params, tokens, *, patch_embeds=None, audio_frames=None,
+                pad_to: int = 0) -> tuple[torch.Tensor, dict]:
+        """Returns (last-token logits (B, vocab), cache).  pad_to: total
+        cache slots to allocate (> prompt length leaves decode room)."""
+        cfg = self.cfg
+        enc = self._encode(params, audio_frames) if cfg.family == "audio" else None
+        h = self._embed_in(params, tokens, patch_embeds)
+        L_total = h.shape[1]
+        caches = []
+        for entry in params["blocks"]:
+            cache: dict[str, Any] = {}
+            for blk, key in self._layers():
+                h, c = blk.prefill(entry if key is None else entry[key], h,
+                                   enc=enc, pad_to=pad_to)
+                if key is None:
+                    cache = c
+                else:
+                    cache[key] = c
+            caches.append(cache)
+        h = apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm)
+        logits = self._unembed(params, h)[:, 0, :]
+        return logits, {"blocks": caches, "len": L_total}
+
+    # ------------------------------------------------------------- decode ---
+    def decode_step(self, params, tokens, cache) -> tuple[torch.Tensor, dict]:
+        """tokens: (B, 1) -> (logits (B, vocab), new cache).  KV caches are
+        updated in place; the returned dict holds the new states."""
+        cfg = self.cfg
+        h = self._embed_in(params, tokens)
+        cache_len = cache["len"]
+        new_caches = []
+        for entry, c in zip(params["blocks"], cache["blocks"]):
+            c2: dict[str, Any] = {}
+            for blk, key in self._layers():
+                if key is None:
+                    h, c2 = blk.decode(entry, h, c, cache_len)
+                else:
+                    h, c2[key] = blk.decode(entry[key], h, c[key], cache_len)
+            new_caches.append(c2)
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        logits = self._unembed(params, h)[:, 0, :]
+        return logits, {"blocks": new_caches, "len": cache_len + 1}

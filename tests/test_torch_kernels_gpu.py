@@ -6,15 +6,20 @@ port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: atol 1e-5 on unit-scale f32 inputs (the same f32 sums in
-another order; accurate ``tanhf``, no TF32)."""
+Tolerance for the MLP kernels: atol 1e-5 on unit-scale f32 inputs (the
+same f32 sums in another order; accurate ``tanhf``, no TF32); the LM
+kernels' tolerances are stated above their tests."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa, moe_router as mr
 from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.batch_score import BucketedScorer
-from repro_torch.kernels.ref import policy_mlp_ref, predict_mlp_ref
+from repro_torch.kernels.ref import (flash_attention_ref, moe_router_ref,
+                                     policy_mlp_ref, predict_mlp_ref,
+                                     ssd_scan_ref)
 
 ATOL = 1e-5
 
@@ -159,3 +164,196 @@ def test_runtime_predictor_on_the_card_matches_the_cpu(cuda_device):
                 np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
     assert preds[0].mape() == preds[1].mape()
     assert preds[0]._dev_params["w3"].device.type == "cuda"
+
+
+# ------------------------------------------------- LM serving kernels --
+# Tolerances: f32 flash attention 2e-5 and SSD scan 2e-3 (true f32 sums in
+# another order, no TF32); bf16 2e-2 (the output is rounded to bf16 on both
+# sides, and one bf16 step at |x| < 2 is 2^-7); router weights 1e-5 and the
+# same expert sets wherever the k-th and (k+1)-th logits are more than 1e-4
+# apart, the same order wherever all the top k + 1 are (the kernel and the
+# plain version sum d = 4096 products in different orders).
+
+_LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(rng, shape, device, dtype=torch.float32, scale=1.0):
+    return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32,
+                        device=device).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,L,D,window", [
+    (1, 32, 8, 512, 128, 0),      # jamba / qwen3-moe: GQA 4, D 128
+    (2, 16, 16, 300, 64, 0),      # mamba-free dense, ragged L
+    (1, 32, 32, 256, 80, 0),      # stablelm: D 80
+    (2, 12, 2, 200, 64, 0),       # GQA 6
+    (1, 16, 1, 130, 64, 0),       # GQA 16
+    (1, 32, 8, 1100, 80, 1000),   # sliding window, first tiles fully masked
+    (1, 8, 8, 4200, 128, 4096),   # h2o-danube window 4096
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda_device, B, H, KV, L,
+                                                      D, window, dtype):
+    rng = np.random.default_rng(L + D)
+    q = _randn(rng, (B, H, L, D), cuda_device, dtype)
+    k = _randn(rng, (B, KV, L, D), cuda_device, dtype)
+    v = _randn(rng, (B, KV, L, D), cuda_device, dtype)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = _LM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rejects_bad_inputs(cuda_device):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 4, 64, 32), cuda_device)
+    k = _randn(rng, (1, 2, 64, 32), cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention(q, k[:, :, :32], k)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="outside"):
+        fa.flash_attention(_randn(rng, (1, 3, 64, 32), cuda_device), k, k)
+    big = _randn(rng, (1, 2, 8, 192), cuda_device)
+    with pytest.raises(ValueError, match="outside"):
+        fa.flash_attention(big, big, big)
+
+
+def _ssd_case(B, L, H, P, N, device, dtype, seed, init=False):
+    rng = np.random.default_rng(seed)
+    xh = _randn(rng, (B, L, H, P), device, dtype, 0.5)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, L, H), device))
+    A = -torch.exp(_randn(rng, (H,), device, scale=0.3))
+    Bs = _randn(rng, (B, L, N), device, dtype, 0.3)
+    Cs = _randn(rng, (B, L, N), device, dtype, 0.3)
+    S0 = _randn(rng, (B, H, P, N), device, scale=0.3) if init else None
+    return xh, dt, A, Bs, Cs, S0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (2, 512, 128, 64, 16, 256),   # jamba
+    (1, 512, 48, 64, 128, 256),   # mamba2-780m
+    (1, 200, 4, 64, 128, 256),    # L shorter than the chunk, off the tile
+    (2, 192, 3, 32, 16, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_kernel_matches_plain_version(cuda_device, B, L, H, P, N,
+                                               chunk, dtype, init):
+    xh, dt, A, Bs, Cs, S0 = _ssd_case(B, L, H, P, N, cuda_device, dtype,
+                                      seed=L + N, init=init)
+    before = ss.launches
+    y, S = ops.ssd_scan(xh, dt, A, Bs, Cs, chunk=chunk, init_state=S0)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    y_want, S_want = ssd_scan_ref(xh, dt, A, Bs, Cs, S0)
+    assert y.dtype == dtype and S.dtype == torch.float32
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(S, S_want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_rejects_bad_inputs(cuda_device):
+    xh, dt, A, Bs, Cs, _ = _ssd_case(1, 64, 2, 16, 16, cuda_device,
+                                     torch.float32, seed=1)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(xh.double(), dt, A, Bs, Cs)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(xh, dt.bfloat16(), A, Bs, Cs)
+    with pytest.raises(ValueError, match="shape"):
+        ss.ssd_scan(xh, dt, A[:1], Bs, Cs)
+    with pytest.raises(ValueError, match="on cpu"):
+        ss.ssd_scan(xh, dt, A.cpu(), Bs, Cs)
+    with pytest.raises(ValueError, match="shape"):
+        ss.ssd_scan(xh, dt, A, Bs, Cs, torch.zeros(1, 2, 16, 8,
+                                                   device=cuda_device))
+    wide = _ssd_case(1, 64, 2, 128, 16, cuda_device, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="outside"):
+        ss.ssd_scan(*wide[:5])
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(xh[:, :48], dt[:, :48], A, Bs[:, :48], Cs[:, :48],
+                     chunk=32)
+
+
+def _router_agrees(x, w, k, got_w, got_i):
+    """Where the k-th and (k+1)-th plain logits are more than 1e-4 apart:
+    the same set of experts, weights within 1e-5 (in the kernel's order);
+    where every gap among the top k + 1 exceeds 1e-4: the same experts in
+    the same order."""
+    want_w, want_i = moe_router_ref(x, w, k)
+    E = w.shape[1]
+    top = torch.sort(x.float() @ w, dim=-1, descending=True).values
+    gaps = top[:, :min(k + 1, E)].diff(dim=-1).neg()
+    set_sep = (gaps[:, k - 1] > 1e-4 if k < E
+               else torch.ones_like(top[:, 0], dtype=torch.bool))
+    ord_sep = (gaps > 1e-4).all(dim=-1)
+    if len(set_sep) >= 100:
+        assert set_sep.float().mean().item() > 0.9
+    assert torch.equal(got_i[set_sep].sort(dim=-1).values,
+                       want_i[set_sep].sort(dim=-1).values)
+    assert torch.equal(got_i[ord_sep], want_i[ord_sep])
+    assert ((got_w - want_w)[set_sep].abs() <= 1e-5).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 4, 300, 8192])
+@pytest.mark.parametrize("d,E,k", [(4096, 16, 2), (1024, 32, 8),
+                                   (4096, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_kernel_matches_plain_version(cuda_device, T, d, E, k,
+                                                 dtype):
+    rng = np.random.default_rng(T + E)
+    x = _randn(rng, (T, d), cuda_device, dtype)
+    w = _randn(rng, (d, E), cuda_device, scale=0.1 / np.sqrt(d))
+    before = mr.launches
+    got_w, got_i = ops.moe_router(x, w, k)
+    torch.cuda.synchronize()
+    assert mr.launches == before + 1
+    assert got_i.dtype == torch.int32 and got_w.shape == (T, k)
+    _router_agrees(x, w, k, got_w, got_i)
+
+
+@pytest.mark.gpu
+def test_moe_router_kernel_breaks_ties_to_the_lowest_expert(cuda_device):
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (300, 256), cuda_device)
+    w = _randn(rng, (256, 16), cuda_device, scale=0.1)
+    w[:, 8:] = w[:, :8]                     # every logit appears twice
+    got_w, got_i = mr.moe_router(x, w, 2)
+    want_w, want_i = moe_router_ref(x, w, 2)
+    assert torch.equal(got_i, want_i)
+    assert (got_i[:, 1] == got_i[:, 0] + 8).all()
+    torch.testing.assert_close(got_w, want_w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_moe_router_kernel_rejects_bad_inputs(cuda_device):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, (16, 64), cuda_device)
+    w = _randn(rng, (64, 8), cuda_device)
+    with pytest.raises(TypeError):
+        mr.moe_router(x.double(), w, 2)
+    with pytest.raises(TypeError):
+        mr.moe_router(x, w.bfloat16(), 2)
+    with pytest.raises(ValueError, match="shape"):
+        mr.moe_router(x, w[:32], 2)
+    with pytest.raises(ValueError, match="on cpu"):
+        mr.moe_router(x, w.cpu(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        mr.moe_router(x.t().contiguous().t(), w, 2)
+    with pytest.raises(ValueError, match="outside"):
+        mr.moe_router(x, w, 9)

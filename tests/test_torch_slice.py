@@ -172,7 +172,11 @@ print(len(names), bad)
 assert not bad, bad
 for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp",
              "repro_torch.predict", "repro_torch.sched.service",
-             "repro_torch.chaos"):
+             "repro_torch.chaos", "repro_torch.configs",
+             "repro_torch.kernels.flash_attention",
+             "repro_torch.kernels.ssd_scan", "repro_torch.kernels.moe_router",
+             "repro_torch.models.lm", "repro_torch.serve.engine",
+             "repro_torch.launch.serve"):
     assert name in names, name
 """
     env = dict(os.environ)
