@@ -21,7 +21,9 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
 6. explore: sampled policy steps on the card;
 7. small: a 96-job Helios schedule on the card equals the CPU's;
 8. predict kernel: the same for the predictor-MLP kernel (random non-zero
-   head, atol 1e-5) at the batch sizes of the stream below;
+   head, atol 1e-5) at the batch sizes of the stream below, beside the
+   card's launch floor (``launch_floor_us``: the graph-replay time of a
+   one-element in-place ``add_``, taken the same way);
 9. stream: the streaming service over a 10,000-job ``mispredict-storm``
    stream with the prediction bench's settings, once blind and once with
    predictor-assisted EASY backfill on the card, counting the predictor
@@ -39,8 +41,9 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     (atol/rtol 2e-2) and f32 (2e-5 attention, 2e-3 SSD; router weights
     1e-5 and indices equal where the k-th and (k+1)-th logits are more
     than 1e-4 apart), and time each at the serve shape below (device time
-    from CUDA-graph replay), beside its plain version and, for attention,
-    ``scaled_dot_product_attention`` as a yardstick;
+    from CUDA-graph replay), beside its plain version, its bound and, for
+    attention, ``scaled_dot_product_attention`` as a yardstick (bf16
+    attention runs on the tensor cores, f32 attention on IEEE FMAs);
 14. LM serve: ``jamba-v0.1-52b`` cut to one 8-layer superblock at full
     width, bf16, seeded random weights on the card: ``ServeEngine`` (batch
     4) serves 8 requests of 2,048-token prompts and 32 new tokens each
@@ -208,13 +211,18 @@ def rank_agrees(kernel_logits, plain_logits, tol: float) -> bool:
 def predict_kernel_phase(dev) -> tuple[float, dict]:
     """Phase 8: the predictor-MLP kernel against its plain version at every
     batch size in ``BS`` (unit-scale weights, the head included: a zero
-    head would hide every error), timed as in phase 3.  Returns the largest
-    error and {B: (ms, plain_ms, bound_ms, bound_by)}."""
+    head would hide every error), timed as in phase 3, after the card's
+    launch floor.  Returns the largest error and {B: (ms, plain_ms,
+    bound_ms, bound_by)}."""
     import numpy as np
     import torch
     from repro_torch.kernels import predict_mlp as qm
     from repro_torch.kernels.ref import predict_mlp_ref
 
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(lambda: one.add_(1.0))
+    print(f"predict kernel: launch_floor_us={floor_ms * 1e3:.3f} (graph "
+          "replay of a one-element in-place add_)")
     F, H1, H2, Q = PREDICT_SHAPE
     q_err = 0.0
     q_timings = {}
@@ -241,7 +249,8 @@ def predict_kernel_phase(dev) -> tuple[float, dict]:
         q_timings[B] = (ms, plain_ms, b_ms, b_by)
         print(f"predict kernel: B={B} F,H1,H2,Q={F},{H1},{H2},{Q} "
               f"max_abs_err={err:.3e} device_us kernel={ms * 1e3:.3f} "
-              f"plain={plain_ms * 1e3:.3f} bound={b_ms * 1e3:.4f} ({b_by}); "
+              f"plain={plain_ms * 1e3:.3f} bound={b_ms * 1e3:.4f} ({b_by}) "
+              f"launch_floor={floor_ms * 1e3:.3f}; "
               f"eager call_us kernel={call_ms * 1e3:.3f} "
               f"plain={plain_call_ms * 1e3:.3f}")
     return q_err, q_timings
@@ -558,7 +567,7 @@ def lm_kernel_phase(dev) -> dict:
                     f"{B},{H},{KV},{L},{D},{win} {dtype} max_abs_err={err:.3e}")
             if (B, H, KV, L, D, win) == main and dtype == torch.bfloat16:
                 ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                              calls=2, replays=3)
+                              calls=5, replays=5)
                 plain_ms = graph_ms(lambda: flash_attention_ref(q, k, v),
                                     calls=2, replays=3)
                 # the yardstick: SDPA on the grouped inputs, and on k, v
@@ -578,8 +587,9 @@ def lm_kernel_phase(dev) -> dict:
                                                library_ms=lib_ms)
                 line += (f" device_us kernel={ms * 1e3:.1f} plain="
                          f"{plain_ms * 1e3:.1f} sdpa_gqa={gqa_ms * 1e3:.1f} "
-                         f"sdpa_repeated_kv={rep_ms * 1e3:.1f} "
-                         f"bound={b_ms * 1e3:.1f} ({b_by}); sdpa vs plain "
+                         f"sdpa_repeated_kv={rep_ms * 1e3:.1f} kernel/sdpa="
+                         f"{ms / lib_ms:.2f} bound={b_ms * 1e3:.1f} ({b_by}) "
+                         f"kernel/bound={ms / b_ms:.2f}; sdpa vs plain "
                          f"max_abs_err={float((sd.float() - want.float()).abs().max()):.3e}")
             print(line)
             del q, k, v, got, want
@@ -729,8 +739,10 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
                   "(not measured)")
             return
         rows.sort(reverse=True)
-        ours = {n: 0.0 for n in ("flash_attention_kernel", "ssd_scan_kernel",
-                                 "moe_router_kernel")}
+        # the port's kernels by name stem (flash_attention_bf16_kernel<128>,
+        # ssd_scan_kernel<bf16>, moe_router_kernel)
+        ours = {n: 0.0 for n in ("flash_attention", "ssd_scan",
+                                 "moe_router")}
         gemm = 0.0
         for t, key, _ in rows:
             for n in ours:
@@ -742,7 +754,7 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
         print(f"where: {label}: wall_ms={wall_s * 1e3:.3f} "
               f"device_busy_ms={total / 1e3:.3f} "
               f"idle_share={max(0.0, 1 - total / 1e3 / (wall_s * 1e3)):.3f} "
-              + " ".join(f"{n.removesuffix('_kernel')}_ms={t / 1e3:.3f}"
+              + " ".join(f"{n}_ms={t / 1e3:.3f}"
                          f"({100 * t / total:.1f}%)" for n, t in ours.items())
               + f" gemm_ms={gemm / 1e3:.3f}({100 * gemm / total:.1f}%)")
         for t, key, n in rows[:8]:

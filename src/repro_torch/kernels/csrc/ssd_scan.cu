@@ -9,8 +9,14 @@
 //        + exp(cs_i) C_i . S                                     (inter)
 //   S'   = exp(cs_last) S + sum_j exp(cs_last - cs_j) dt_j x_j B_j^T
 // with the (P, N) state S carried in f32 from chunk to chunk, starting from
-// init_state (or zero), and written out after the last chunk.  Starting the
-// scan from S0 gives the same sums as the reference's closed-form terms.
+// zero, and written out after the last chunk.  An initial state S0 is added
+// as the reference's wrapper adds it: y_i from the zero state is rounded to
+// the input dtype, then exp(cs_i) C_i . S0 (cs from the start of the
+// sequence) is added in f32 and the sum rounded again; the final state is
+// S + exp(cs_L) S0.  That work (S0 in shared memory, a second C . S0 dot
+// product per output) lives in its own instantiation, kInit: folded into
+// the one kernel it doubled the registers (64 -> 128) and slowed the scan
+// without an initial state, which is the one serving runs.
 //
 // Bound on the H100.  At the Jamba serve shape (B 4, L 2,048, H 128, P 64,
 // N 16, bf16) the chunked form at the reference's 256-step chunk is ~21
@@ -23,7 +29,8 @@
 // walks the sequence in order (the sequential chunk axis of the TPU grid
 // becomes a loop inside the block) with the state in shared memory.  The
 // kernel's chunk is 64 steps, the tile that fits shared memory with N = 128
-// (x dt, B, C, the 64 x 64 weights W and the 64 x 128 state, ~132 KB); the
+// (x dt, B, C, the 64 x 64 weights W and the 64 x 128 state, ~132 KB, and
+// ~165 KB with an initial state's S0 beside the carried state); the
 // SSD identity makes y and the final state independent of the chunk length,
 // so the wrapper keeps the reference's contract on its `chunk` argument and
 // the kernel cuts each chunk into 64-step tiles (a last tile may be short).
@@ -60,16 +67,25 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// floats of shared memory for state width N and head dim P
-__host__ __device__ constexpr int smem_floats(int P, int N) {
+// value v rounded to T and read back as f32
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// floats of shared memory for state width N and head dim P (and S0 when an
+// initial state is given)
+__host__ __device__ constexpr int smem_floats(int P, int N, bool init) {
   return kT * P            // x dt
          + 2 * kT * (N + 1) // B, C
          + kT * (kT + 1)    // W
-         + P * (N + 1)      // S
+         + (init ? 2 : 1) * P * (N + 1)  // S (and S0)
          + 2 * kT;          // cs, exp(cs_last - cs)
 }
 
-template <typename T>
+// kInit: an initial state is given (its own instantiation, so the scan
+// without one carries none of its work)
+template <typename T, bool kInit>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bs,
@@ -85,14 +101,18 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* s_s = s_w + kT * (kT + 1);     // [P][N1]   carried state
   float* s_cs = s_s + P * N1;           // [kT]
   float* s_carry = s_cs + kT;           // [kT]
+  float* s_s0 = s_carry + kT;           // [P][N1]   initial state, if any
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x, b = blockIdx.y;
   const float a_h = A[h];
   const size_t state_off = ((size_t)b * H + h) * P * N;
 
-  for (int e = tid; e < P * N; e += kThreads)
-    s_s[(e / N) * N1 + e % N] = init ? init[state_off + e] : 0.f;
+  for (int e = tid; e < P * N; e += kThreads) {
+    s_s[(e / N) * N1 + e % N] = 0.f;
+    if (kInit) s_s0[(e / N) * N1 + e % N] = init[state_off + e];
+  }
+  float cs_base = 0.f;                  // sum of dt A over the earlier tiles
 
   const int row = tid / kRowThreads;    // output row of phase 2
   const int pc = tid % kRowThreads;     // its dims: pc + kRowThreads * kk
@@ -162,6 +182,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         }
       }
       const float ecs = expf(s_cs[row]);
+      const float ecs0 = kInit ? expf(cs_base + s_cs[row]) : 0.f;
       const size_t yrow = (((size_t)b * L + t0 + row) * H + h) * P;
 #pragma unroll
       for (int kk = 0; kk < kPPT; ++kk) {
@@ -170,7 +191,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           float cs_dot = 0.f;
           for (int n = 0; n < N; ++n)
             cs_dot = fmaf(s_c[row * N1 + n], s_s[p * N1 + n], cs_dot);
-          store(y + yrow + p, acc[kk] + ecs * cs_dot);
+          float out = acc[kk] + ecs * cs_dot;
+          if (kInit) {                  // round, add S0's share, round again
+            float c_s0 = 0.f;
+            for (int n = 0; n < N; ++n)
+              c_s0 = fmaf(s_c[row * N1 + n], s_s0[p * N1 + n], c_s0);
+            out = round_to(out, T()) + ecs0 * c_s0;
+          }
+          store(y + yrow + p, out);
         }
       }
     }
@@ -185,22 +213,27 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         ds = fmaf(s_b[j * N1 + n], s_x[j * P + p] * s_carry[j], ds);
       s_s[p * N1 + n] = s_s[p * N1 + n] * decay + ds;
     }
+    cs_base += total;
   }
   __syncthreads();
-  for (int e = tid; e < P * N; e += kThreads)
-    state[state_off + e] = s_s[(e / N) * N1 + e % N];
+  const float decay0 = expf(cs_base);
+  for (int e = tid; e < P * N; e += kThreads) {
+    const int i = (e / N) * N1 + e % N;
+    state[state_off + e] = kInit ? s_s[i] + decay0 * s_s0[i] : s_s[i];
+  }
 }
 
-template <typename T>
+template <typename T, bool kInit>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bs, const void* Cs, const void* init, void* y,
                    void* state, int L, int H, int P, int N, dim3 grid,
-                   size_t smem, cudaStream_t s) {
+                   cudaStream_t s) {
+  const size_t smem = sizeof(float) * smem_floats(P, N, kInit);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel<T, kInit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_scan_kernel<T><<<grid, kThreads, smem, s>>>(
+  ssd_scan_kernel<T, kInit><<<grid, kThreads, smem, s>>>(
       (const T*)x, (const float*)dt, (const float*)A, (const T*)Bs,
       (const T*)Cs, (const float*)init, (T*)y, (float*)state, L, H, P, N);
   return cudaSuccess;
@@ -226,13 +259,19 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * smem_floats(P, N);
   const dim3 grid(H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  err = dtype == 0 ? launch<float>(x, dt, A, Bs, Cs, init, y, state, L, H,
-                                   P, N, grid, smem, s)
-                   : launch<__nv_bfloat16>(x, dt, A, Bs, Cs, init, y, state,
-                                           L, H, P, N, grid, smem, s);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    err = init ? launch<float, true>(x, dt, A, Bs, Cs, init, y, state, L, H,
+                                     P, N, grid, s)
+               : launch<float, false>(x, dt, A, Bs, Cs, init, y, state, L, H,
+                                      P, N, grid, s);
+  else
+    err = init ? launch<bf16, true>(x, dt, A, Bs, Cs, init, y, state, L, H,
+                                    P, N, grid, s)
+               : launch<bf16, false>(x, dt, A, Bs, Cs, init, y, state, L, H,
+                                     P, N, grid, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
 
 
+def ssd_init_share(dt, A, Cs, init_state):
+    """The initial state's share of the SSD output, exp(cs_t) C_t . S0, in
+    f32.  dt (B, L, H), A (H,), Cs (B, L, N), init_state (B, H, P, N) ->
+    (B, L, H, P), cs the inclusive cumsum of dt * A over the sequence."""
+    cs = torch.cumsum(dt.float() * A.float(), dim=1)        # (B, L, H)
+    return torch.einsum("bln,bhpn,blh->blhp", Cs.float(), init_state.float(),
+                        torch.exp(cs))
+
+
 def ssd_scan_ref(xh, dt, A, Bs, Cs, init_state=None):
     """Naive quadratic SSD (the 1-semiseparable attention form), one batch
     row at a time.  xh: (B, L, H, P); dt: (B, L, H) f32; A: (H,) f32;
@@ -55,8 +64,12 @@ def ssd_scan_ref(xh, dt, A, Bs, Cs, init_state=None):
                + exp(cs_t) C_t . S0
         S    = sum_s exp(cs_L - cs_s) dt_s x_s B_s^T + exp(cs_L) S0
 
-    with cs the inclusive cumsum of dt * A over the sequence.  Returns
-    (y (B, L, H, P) in xh's dtype, final state (B, H, P, N) f32)."""
+    with cs the inclusive cumsum of dt * A over the sequence.  As the
+    reference's wrapper does, y is rounded twice when an initial state is
+    given: the scan from a zero state is rounded to xh's dtype, then the
+    initial state's share (``ssd_init_share``) is added in f32 and the sum
+    rounded again.  Returns (y (B, L, H, P) in xh's dtype, final state
+    (B, H, P, N) f32)."""
     B, L, H, P = xh.shape
     N = Bs.shape[-1]
     ys, states = [], []
@@ -75,13 +88,13 @@ def ssd_scan_ref(xh, dt, A, Bs, Cs, init_state=None):
         carry = torch.exp(cs[:, -1:] - cs)                  # (H, L)
         S = (xdt * carry[:, :, None]).transpose(1, 2) @ Bb  # (H, P, N)
         if init_state is not None:
-            S0 = init_state[b].float()                      # (H, P, N)
-            y = y + torch.exp(cs)[:, :, None] * (Cb @ S0.transpose(1, 2))
-            S = S + S0 * torch.exp(cs[:, -1])[:, None, None]
+            S = S + init_state[b].float() * torch.exp(cs[:, -1])[:, None, None]
         ys.append(y.permute(1, 0, 2))
         states.append(S)
-    return (torch.stack(ys).to(xh.dtype),
-            torch.stack(states).reshape(B, H, P, N))
+    y = torch.stack(ys).to(xh.dtype)
+    if init_state is not None:
+        y = (y.float() + ssd_init_share(dt, A, Cs, init_state)).to(xh.dtype)
+    return y, torch.stack(states).reshape(B, H, P, N)
 
 
 def moe_router_ref(x, router_w, k: int):

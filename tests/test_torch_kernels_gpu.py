@@ -186,7 +186,7 @@ def _randn(rng, shape, device, dtype=torch.float32, scale=1.0):
 @pytest.mark.parametrize("B,H,KV,L,D,window", [
     (1, 32, 8, 512, 128, 0),      # jamba / qwen3-moe: GQA 4, D 128
     (2, 16, 16, 300, 64, 0),      # mamba-free dense, ragged L
-    (1, 32, 32, 256, 80, 0),      # stablelm: D 80
+    (1, 32, 32, 256, 80, 0),      # h2o-danube: D 80
     (2, 12, 2, 200, 64, 0),       # GQA 6
     (1, 16, 1, 130, 64, 0),       # GQA 16
     (1, 32, 8, 1100, 80, 1000),   # sliding window, first tiles fully masked
@@ -206,6 +206,28 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, B, H, KV, L,
     want = flash_attention_ref(q, k, v, causal=True, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     tol = _LM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [50, 72, 96, 112])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_flash_attention_bf16_kernel_other_head_dims(cuda_device, D, aligned):
+    """Head dims the bf16 kernel runs in the next instantiated width up
+    (zero-filled in shared memory), on 16-byte aligned inputs (cp.async
+    copies where D % 8 == 0) and on inputs that start 2 bytes off (element
+    loads and stores)."""
+    rng = np.random.default_rng(D)
+    B, H, KV, L = 1, 8, 2, 333
+
+    def tensor(n):
+        t = _randn(rng, (B * n * L * D + 1,), cuda_device, torch.bfloat16)
+        return (t[:-1] if aligned else t[1:]).view(B, n, L, D)
+    q, k, v = tensor(H), tensor(KV), tensor(KV)
+    assert q.is_contiguous() and (q.data_ptr() % 16 == 0) == aligned
+    got = ops.flash_attention(q, k, v, causal=True, window=100)
+    want = flash_attention_ref(q, k, v, causal=True, window=100)
+    tol = _LM_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 

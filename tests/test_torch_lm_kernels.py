@@ -11,15 +11,17 @@ Tolerances: flash attention 2e-5 (f32) / 2e-2 (bf16); SSD scan 2e-3 (f32)
 / 5e-2 (bf16), as the reference's sweeps; router weights 1e-5 and router
 indices exactly equal, ties included (both take the lowest expert index).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention as fa, ops
 from repro_torch.kernels.ref import (flash_attention_ref, moe_router_ref,
-                                     ssd_scan_ref)
+                                     ssd_init_share, ssd_scan_ref)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -79,6 +81,121 @@ def test_flash_attention_ref_ragged_and_grouped(H, KV, L, D, window):
                                atol=2e-5, rtol=2e-5)
 
 
+def _flash_bf16_emulation(q, k, v, *, causal, window):
+    """The bf16 tensor-core kernel's order of work, on the CPU: per 64-row
+    query tile (one warpgroup's rows), the 64-key tiles it visits (zero past
+    L and masked), S in f32 from the bf16 q and k scaled to the log2
+    domain, masked scores -1e30, the online max and sum of the f32 P, P
+    rounded to bf16 before P V, the final divide (denominator clamped at
+    1e-30), the output rounded to bf16.  (A block of the kernel visits the
+    tiles of its four warpgroups' rows together; the tiles a warpgroup's
+    rows see wholly masked after a real score add exactly 0, and those
+    before one are washed out, so the result is the same.)"""
+    B, H, L, D = q.shape
+    G = H // k.shape[1]
+    BQ, BK = 64, 64
+    scale = (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+             * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    qf = q.float()
+    Lk = -(-L // BK) * BK + BK
+    kf, vf = (torch.nn.functional.pad(t.float().repeat_interleave(G, dim=1),
+                                      (0, 0, 0, Lk - L)) for t in (k, v))
+    out = torch.empty((B, H, L, D), dtype=torch.float32)
+    for q0 in range(0, L, BQ):
+        rows = torch.arange(q0, min(q0 + BQ, L))[:, None]
+        lo, hi = 0, L
+        if causal:
+            hi = min(L, q0 + BQ)
+        if window:
+            lo = max(0, q0 - window + 1)
+        lo = lo // BK * BK
+        m = torch.full((B, H, len(rows)), -1e30)
+        lsum = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), D))
+        for k0 in range(lo, hi, BK):
+            keys = torch.arange(k0, k0 + BK)[None, :]
+            s = (qf[:, :, q0:q0 + len(rows)]
+                 @ kf[:, :, k0:k0 + BK].transpose(-1, -2)) * scale
+            keep = keys < L
+            if causal:
+                keep = keep & (keys <= rows)
+            if window:
+                keep = keep & (keys > rows - window)
+            s = torch.where(keep, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            lsum = lsum * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None]
+                   + p.bfloat16().float() @ vf[:, :, k0:k0 + BK])
+            m = m_new
+        out[:, :, q0:q0 + len(rows)] = acc / lsum.clamp_min(1e-30)[..., None]
+    return out.to(torch.bfloat16)
+
+
+def _flash_inputs(B, H, KV, L, D, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, L, D), (B, KV, L, D), (B, KV, L, D))]
+
+
+@pytest.mark.parametrize("B,H,KV,L,D", [(1, 8, 2, 256, 64),
+                                        (2, 4, 1, 128, 80)])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_bf16_kernel_arithmetic_matches_plain_and_pallas(B, H, KV, L,
+                                                               D, window):
+    """The bf16 kernel's arithmetic (emulated on the CPU, GQA 4) against
+    the plain version and the Pallas kernel (interpret mode) at the bf16
+    tolerance, 2e-2."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bf16") for a in
+                                    _flash_inputs(B, H, KV, L, D, L + D))
+    got = _flash_bf16_emulation(tq, tk, tv, causal=True, window=window)
+    want = flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("H,KV,L,D,window", [(8, 2, 200, 64, 0),
+                                             (8, 2, 77, 80, 64),
+                                             (4, 1, 150, 50, 0),
+                                             (4, 4, 130, 96, 40)])
+def test_flash_bf16_kernel_arithmetic_ragged(H, KV, L, D, window):
+    """Lengths off any tile and head dims run in the next instantiated width
+    up (50 in 64, 96 in 128): the emulated bf16 kernel against the plain
+    version alone (the Pallas wrapper needs whole blocks)."""
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in
+                  _flash_inputs(1, H, KV, L, D, L))
+    got = _flash_bf16_emulation(tq, tk, tv, causal=True, window=window)
+    want = flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("D,width", [(1, 64), (50, 64), (64, 64), (65, 80),
+                                     (72, 80), (80, 80), (81, 128),
+                                     (96, 128), (128, 128)])
+def test_flash_attention_head_width(D, width):
+    """The bf16 kernel runs 64, 80 and 128 as they are, any other D <= 128
+    in the next instantiated width up."""
+    assert fa.head_width(D) == width
+    assert width in fa.HEAD_WIDTHS
+
+
+@pytest.mark.parametrize("D", [0, -1, 129, 256])
+def test_flash_attention_head_width_refuses(D):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.head_width(D)
+
+
+def test_flash_attention_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16)
+    before = fa.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches == before
+
+
 def _ssd_inputs(B, L, H, P, N, dtype, seed=0):
     rng = np.random.default_rng(seed)
     xh = (rng.standard_normal((B, L, H, P)) * 0.5).astype(np.float32)
@@ -132,6 +249,36 @@ def test_ssd_scan_ref_init_state_matches_pallas():
                              init_state=jnp.asarray(S1.numpy()))
     np.testing.assert_allclose(y2.numpy(), _f32(jy2), atol=2e-3, rtol=2e-3)
     np.testing.assert_allclose(S2.numpy(), _f32(jS2), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(1, 128, 2, 16, 32, 32),
+                                             (2, 64, 3, 32, 16, 64)])
+def test_ssd_scan_ref_init_state_rounds_as_the_reference(B, L, H, P, N, chunk):
+    """bf16 with an initial state: y is the scan from a zero state rounded
+    to bf16, plus the initial state's share added in f32 and rounded again,
+    bit for bit, as the reference's wrapper rounds it; the share matches a
+    float64 evaluation, the final state is S + exp(cs_L) S0, and port and
+    reference agree at the bf16 tolerance of the sweep above."""
+    j, t = _ssd_inputs(B, L, H, P, N, "bf16", seed=L + H)
+    S0 = (np.random.default_rng(L).standard_normal((B, H, P, N))
+          * 0.3).astype(np.float32)
+    tS0 = torch.from_numpy(S0)
+    y0, S_zero = ssd_scan_ref(*t)
+    y, S = ssd_scan_ref(*t, init_state=tS0)
+    share = ssd_init_share(t[1], t[2], t[4], tS0)
+    assert y.dtype == torch.bfloat16 and share.dtype == torch.float32
+    assert torch.equal(y, (y0.float() + share).to(torch.bfloat16))
+    dt, A, Cs = (a.double().numpy() for a in (t[1], t[2], t[4]))
+    cs = np.cumsum(dt * A, axis=1)                       # (B, L, H)
+    want = np.einsum("bln,bhpn,blh->blhp", Cs, S0.astype(np.float64),
+                     np.exp(cs))
+    np.testing.assert_allclose(share.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        S.numpy(), S_zero.numpy() + S0 * np.exp(cs[:, -1])[:, :, None, None],
+        atol=1e-5, rtol=1e-5)
+    jy, jS = jops.ssd_scan(*j, chunk=chunk, init_state=jnp.asarray(S0))
+    np.testing.assert_allclose(_f32(y), _f32(jy), atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(_f32(S), _f32(jS), atol=5e-2, rtol=5e-2)
 
 
 def test_ssd_scan_rejects_a_ragged_length():

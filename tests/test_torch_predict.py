@@ -65,6 +65,50 @@ def test_predict_mlp_matches_pallas_and_numpy(B):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+def _predict_kernel_emulation(x, w1, b1, w2, b2, w3, b3):
+    """The CUDA kernel's split and order of work, on the CPU: every
+    first-layer unit one chain of FMAs over the features in order, every
+    second-layer unit one chain over the 24 hidden units in order (as the
+    shuffles hand them over), the heads summed by each of the two lanes of
+    a row over its second-layer units (k = 0..5, 6..11) in order, then the
+    two shares added.  An f32 FMA is taken through float64, where the
+    product is exact."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+    lanes, H2 = 2, w2.shape[1]
+    a1 = torch.zeros((x.shape[0], w1.shape[1]))
+    for f in range(x.shape[1]):
+        a1 = fma(x[:, f:f + 1], w1[f][None], a1)
+    h1 = torch.tanh(a1 + b1)
+    a2 = torch.zeros((x.shape[0], H2))
+    for j in range(w2.shape[0]):
+        a2 = fma(h1[:, j:j + 1], w2[j][None], a2)
+    g = torch.tanh(a2 + b2)
+    per_lane = -(-12 // lanes)              # the kernel's units a lane
+    share = torch.zeros((x.shape[0], lanes, w3.shape[1]))
+    for p in range(lanes):
+        for k in range(p * per_lane, min((p + 1) * per_lane, H2)):
+            share[:, p] = fma(g[:, k:k + 1], w3[k][None], share[:, p])
+    return share[:, 0] + share[:, 1] + b3
+
+
+@pytest.mark.parametrize("B", [1, 7, 300])
+@pytest.mark.parametrize("F,H1,H2,Q", [(21, 24, 12, 2), (5, 16, 7, 1)])
+def test_predict_kernel_arithmetic_matches_plain_version(B, F, H1, H2, Q):
+    """The kernel's two-lanes-a-row split and fixed reduction order
+    (emulated on the CPU) against the plain version, within 1e-5, on
+    unit-scale inputs and weights, the head included."""
+    rng = np.random.default_rng(B + F)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+    args = (t(B, F), t(F, H1), t(H1), t(H1, H2), t(H2), t(H2, Q), t(Q))
+    got = _predict_kernel_emulation(*args)
+    want = predict_mlp_ref(*args)
+    assert got.shape == (B, Q) and got.abs().max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+
+
 def test_ops_sends_cpu_tensors_to_the_plain_version():
     params = _torch_params(_mlp_params(1))
     x = torch.tensor(np.random.default_rng(1).normal(
