@@ -621,22 +621,26 @@ def lm_kernel_phase(dev) -> dict:
             err = max(float((y.float() - y_want.float()).abs().max()),
                       float((S - S_want).abs().max()))
             err_max = max(err_max, err)
+            ms = graph_ms(lambda: ss.ssd_scan(xh, dt, A, Bs, Cs, S0),
+                          calls=5, replays=5)
+            b_ms, b_by = ssd_bound(B, L, H, P, N, lm.ssm_chunk, dtype)
             line = (f"lm kernel: ssd_scan B,L,H,P,N={B},{L},{H},{P},{N} "
-                    f"init_state={init} {dtype} max_abs_err={err:.3e}")
+                    f"init_state={init} {dtype} max_abs_err={err:.3e} "
+                    f"device_us kernel={ms * 1e3:.1f} bound={b_ms * 1e3:.1f} "
+                    f"({b_by})")
             if (B, L, H, P, N) == main and dtype == torch.bfloat16:
-                ms = graph_ms(lambda: ss.ssd_scan(xh, dt, A, Bs, Cs),
-                              calls=5, replays=5)
                 plain_ms = graph_ms(lambda: ssd_scan_ref(xh, dt, A, Bs, Cs),
                                     calls=1, replays=3)
-                b_ms, b_by = ssd_bound(B, L, H, P, N, lm.ssm_chunk, dtype)
                 rows["ssd_scan"] = dict(ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by,
                                         library_ms=None)
-                line += (f" device_us kernel={ms * 1e3:.1f} plain="
-                         f"{plain_ms * 1e3:.1f} bound={b_ms * 1e3:.1f} ({b_by})")
+                line += (f" plain={plain_ms * 1e3:.1f} "
+                         f"kernel/bound={ms / b_ms:.2f}")
             print(line)
             del xh, dt, Bs, Cs, y, y_want
     rows["ssd_scan"]["max_abs_err"] = err_max
+    print(f"lm kernel: one ssd_scan call launches {ss.kernels_per_call()} "
+          "CUDA kernels (chunk states, state passing, outputs)")
 
     # -- MoE router: every registered (d, E, k), decode and prefill sizes
     err_max = 0.0
@@ -739,14 +743,17 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
                   "(not measured)")
             return
         rows.sort(reverse=True)
-        # the port's kernels by name stem (flash_attention_bf16_kernel<128>,
-        # ssd_scan_kernel<bf16>, moe_router_kernel)
-        ours = {n: 0.0 for n in ("flash_attention", "ssd_scan",
-                                 "moe_router")}
+        # the port's kernels by name stem (flash_attention_bf16_kernel<128>;
+        # an SSD call's chunk_state_bf16, state_pass and chunk_scan_bf16;
+        # moe_router_kernel)
+        stems = {"flash_attention": ("flash_attention",),
+                 "ssd_scan": ("chunk_state", "state_pass", "chunk_scan"),
+                 "moe_router": ("moe_router",)}
+        ours = {n: 0.0 for n in stems}
         gemm = 0.0
         for t, key, _ in rows:
-            for n in ours:
-                if n in key:
+            for n, names in stems.items():
+                if any(stem in key for stem in names):
                     ours[n] += t
             if any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
                                                "nvjet", "gemv")):
@@ -1084,6 +1091,21 @@ def main() -> int:
           f"rank_ms_p99={np.percentile(lat, 99):.4f} "
           f"act_and_score_s={device_s[0]:.3f} "
           f"calls_by_q={dict(sorted(by_q.items()))}")
+    # the kernel's device time at every Q the main path launched, weighted
+    # by its launches there (the actor's net; Q absent from QS timed here)
+    per_q = {}
+    for Q in sorted(by_q):
+        if (Q, 8, 64, 32) in timings:
+            per_q[Q] = timings[(Q, 8, 64, 32)][0]
+        else:
+            x, fl, mk, _ = case(Q, 8, 64, 32)
+            per_q[Q] = graph_ms(lambda: pm.policy_mlp(x, *fl, mk))
+    n_calls = sum(by_q.values())
+    weighted = sum(per_q[Q] * n for Q, n in by_q.items())
+    print("main: policy_mlp launches by Q " + " ".join(
+        f"{Q}:{by_q[Q]}x{per_q[Q] * 1e3:.3f}us" for Q in sorted(by_q)) +
+        f"; launch-weighted device_us per call={weighted / n_calls * 1e3:.3f}"
+        f", device_ms over the run={weighted:.3f}")
 
     # ----------------------------------------------------------- 5. check --
     flat = [t for lyr in actor for t in (lyr["w"], lyr["b"])]

@@ -53,7 +53,7 @@ def _flat(layers):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Q", [1, 256, 300, 2304, 4096, 16384])
+@pytest.mark.parametrize("Q", [1, 255, 256, 257, 300, 2304, 4096, 16384])
 @pytest.mark.parametrize("F,H1,H2", [(8, 64, 32), (8, 32, 16), (5, 40, 20)])
 def test_policy_mlp_kernel_matches_plain_version(cuda_device, Q, F, H1, H2):
     x, layers, mask = _case(Q, F, H1, H2, cuda_device, seed=Q)
@@ -64,6 +64,27 @@ def test_policy_mlp_kernel_matches_plain_version(cuda_device, Q, F, H1, H2):
     want = policy_mlp_ref(x, *_flat(layers), mask)
     assert (got - want).abs().max().item() <= ATOL
     assert (got[1::2] == -1e9).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 300])
+def test_policy_mlp_kernel_unaligned_actor(cuda_device, Q):
+    """The actor's own widths on inputs that start 4 bytes off a 16-byte
+    boundary run the padded instantiation (the exact one needs 16-byte
+    vector loads) and agree with the plain version all the same."""
+    x, layers, mask = _case(Q, 8, 64, 32, cuda_device, seed=Q + 1)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    xs = shifted(x)
+    ls = [{k: shifted(v) for k, v in lyr.items()} for lyr in layers]
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    got = ops.policy_mlp(xs, ls, mask)
+    want = policy_mlp_ref(x, *_flat(layers), mask)
+    assert (got - want).abs().max().item() <= ATOL
 
 
 @pytest.mark.gpu
@@ -266,10 +287,13 @@ def _ssd_case(B, L, H, P, N, device, dtype, seed, init=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (1, 2048, 128, 64, 16, 256),  # jamba, one row of the serve batch
     (2, 512, 128, 64, 16, 256),   # jamba
     (1, 512, 48, 64, 128, 256),   # mamba2-780m
     (1, 200, 4, 64, 128, 256),    # L shorter than the chunk, off the tile
     (2, 192, 3, 32, 16, 64),
+    (1, 1, 4, 64, 16, 256),       # one step
+    (1, 65, 5, 64, 128, 256),     # one step past the kernels' 64-step chunk
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("init", [False, True])

@@ -281,6 +281,165 @@ def test_ssd_scan_ref_init_state_rounds_as_the_reference(B, L, H, P, N, chunk):
     np.testing.assert_allclose(_f32(S), _f32(jS), atol=5e-2, rtol=5e-2)
 
 
+def _hi_lo(t):
+    """An f32 tensor as a bf16 high part and the bf16 rounding of the rest
+    (both returned in f32)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _ssd_chunk_parallel_emulation(xh, dt, A, Bs, Cs, init_state=None):
+    """The CUDA kernels' order of work on the CPU, at their own chunk (128
+    steps in bf16 at N <= 16, else 64; the sequence zero-padded to whole
+    chunks): (1) every chunk's state S_c = x^T (w B) with w_j = dt_j
+    exp(cs_last - cs_j), cs the cumsum of dt A inside the chunk; (2) S_in(c
+    + 1) = exp(cs_last(c)) S_in(c) + S_c from zero, the final state
+    S_in(n_chunks) (+ exp(cs0_L) S0); (3) y in halves of 64 steps: y = W x +
+    exp(cs_i - cs_start) C . S_start with W_ij = (C_i . B_j) exp(cs_i -
+    cs_j) dt_j on j <= i inside the half, S_start = S_in for the first half
+    and, for the second half of a 128-step chunk, S_mid = exp(cs_63) S_in +
+    x^T (w' B) over the first half (w'_j = dt_j exp(cs_63 - cs_j)), cs_start
+    = cs_63; with an initial state y rounded, exp(cs0_i) C . S0 added in f32
+    and rounded again.  In bf16 every product whose operand the kernels
+    make in f32 (w B, W, S_in, S_mid, S0) is the sum of two products, one
+    with the operand's bf16 high part and one with the bf16 rounding of the
+    rest (the tensor cores' f32 sums taken in float64); bf16 inputs are
+    exact.  In f32 the products are f32 matmuls.  Returns (y, final state,
+    the initial state's share of y in f32 or None)."""
+    B, L, H, P = xh.shape
+    N = Bs.shape[-1]
+    bf = xh.dtype == torch.bfloat16
+    Q = 128 if bf and N <= 16 else 64
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def chunks(t):                      # (B, L, ...) -> (B, nc, Q, ...)
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(B, nc, Q, *t.shape[2:])
+
+    def prod(exact, made):
+        """exact @ made, made an f32 operand the kernel makes."""
+        if not bf:
+            return exact @ made
+        hi, lo = _hi_lo(made)
+        e = exact.double()
+        return (e @ hi.double() + e @ lo.double()).float()
+
+    x = chunks(xh).permute(0, 3, 1, 2, 4)                 # (B, H, nc, Q, P)
+    d = chunks(dt).permute(0, 3, 1, 2)                    # (B, H, nc, Q)
+    Bm, Cm = chunks(Bs)[:, None], chunks(Cs)[:, None]     # (B, 1, nc, Q, N)
+    cs = torch.cumsum(d * A.float()[None, :, None, None], dim=-1)
+    total = cs[..., -1]                                   # (B, H, nc)
+    w = d * torch.exp(total[..., None] - cs)
+    S_c = prod(x.transpose(-1, -2), w[..., None] * Bm)    # (B, H, nc, P, N)
+    S = torch.zeros((B, H, P, N))
+    S_in, cs0, run = [], [], torch.zeros((B, H))
+    for c in range(nc):
+        S_in.append(S)
+        cs0.append(run)
+        run = run + total[..., c]
+        f = torch.exp(total[..., c])[..., None, None].double()
+        S = (f * S.double() + S_c[:, :, c].double()).float()
+    S_in, cs0 = torch.stack(S_in, dim=2), torch.stack(cs0, dim=2)
+    # the outputs kernel's decay: exp(cs_i - cs_j) = exp(cs_i - cs_m0)
+    # exp(cs_m0 - cs_k0) exp(cs_k0 - cs_j), m0 and k0 the first steps of the
+    # 16-step blocks of i and j; f_j = dt_j exp(cs_k0 - cs_j)
+    blk = cs[..., ::16].repeat_interleave(16, dim=-1)     # cs_m0 / cs_k0
+    f = d * torch.exp(blk - cs)
+    tri = torch.tril(torch.ones((64, 64), dtype=torch.bool))
+    ys, start, cs_start = [], S_in, torch.zeros_like(total)
+    for half in range(Q // 64):
+        sl = slice(64 * half, 64 * half + 64)
+        xq, csq, bq, fq, Bq, Cq = (x[..., sl, :], cs[..., sl],
+                                   blk[..., sl], f[..., sl],
+                                   Bm[..., sl, :], Cm[..., sl, :])
+        if half:                         # S_mid over the first half
+            c63 = cs[..., 63]
+            w1 = torch.exp(c63[..., None] - blk[..., :64]) * f[..., :64]
+            start = (torch.exp(c63)[..., None, None] * S_in
+                     + prod(x[..., :64, :].transpose(-1, -2),
+                            w1[..., None] * Bm[..., :64, :]))
+            cs_start = c63
+        G = (Cq.double() @ Bq.double().transpose(-1, -2)).float()
+        rows = torch.exp(csq - bq)[..., :, None]          # exp(cs_i - cs_m0)
+        expo = bq[..., :, None] - bq[..., None, :]        # cs_m0 - cs_k0
+        blocks = torch.exp(torch.where(tri, expo,
+                                       torch.full_like(expo, -math.inf)))
+        W = torch.where(tri, G * (rows * blocks) * fq[..., None, :],
+                        torch.zeros_like(G))
+        ys.append(prod(W, xq)
+                  + torch.exp(csq - cs_start[..., None])[..., None]
+                  * prod(Cq, start.transpose(-1, -2)))
+    y = torch.cat(ys, dim=-2)
+    share = None
+    if init_state is not None:
+        S0 = init_state.float()
+        S = S + torch.exp(run)[..., None, None] * S0
+        share = (torch.exp(cs0[..., None] + cs)[..., None]
+                 * prod(Cm, S0[:, :, None].transpose(-1, -2)))
+        y = y.to(xh.dtype).float() + share
+
+    def unchunk(t):                     # (B, H, nc, Q, P) -> (B, L, H, P)
+        return t.permute(0, 2, 3, 1, 4).reshape(B, nc * Q, H, P)[:, :L]
+    if share is not None:
+        share = unchunk(share)
+    return unchunk(y).to(xh.dtype), S, share
+
+
+@pytest.mark.parametrize("B,L,H,P,N", [
+    (1, 256, 2, 16, 16),     # L a multiple of the kernels' chunks
+    (2, 200, 3, 16, 16),     # L a multiple of neither 64 nor 128
+    (2, 100, 3, 16, 16),     # L shorter than the bf16 chunk at N 16
+    (1, 40, 2, 32, 128),     # L shorter than a chunk, N 128
+    (1, 1, 2, 16, 128),      # one step
+    (1, 192, 2, 64, 128),    # three chunks at N 128
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_chunk_parallel_arithmetic_matches_plain_and_pallas(
+        B, L, H, P, N, dtype, init):
+    """The three CUDA kernels' chunk-parallel form with the bf16 high/low
+    split (emulated on the CPU) against the plain version and the Pallas
+    kernel (interpret mode): y at the sweep's tolerances (2e-3 f32, 5e-2
+    bf16), the final state at 2e-3."""
+    j, t = _ssd_inputs(B, L, H, P, N, dtype, seed=L + N + P)
+    S0 = ((np.random.default_rng(L).standard_normal((B, H, P, N)) * 0.3)
+          .astype(np.float32) if init else None)
+    tS0 = None if S0 is None else torch.from_numpy(S0)
+    y, S, _ = _ssd_chunk_parallel_emulation(*t, init_state=tS0)
+    y_ref, S_ref = ssd_scan_ref(*t, init_state=tS0)
+    jy, jS = jops.ssd_scan(*j, chunk=256, init_state=(
+        None if S0 is None else jnp.asarray(S0)))
+    assert y.dtype == t[0].dtype and y.shape == (B, L, H, P)
+    assert S.dtype == torch.float32 and S.shape == (B, H, P, N)
+    tol = 5e-2 if dtype == "bf16" else 2e-3
+    for want in (_f32(y_ref), _f32(jy)):
+        np.testing.assert_allclose(_f32(y), want, atol=tol, rtol=tol)
+    for want in (_f32(S_ref), _f32(jS)):
+        np.testing.assert_allclose(_f32(S), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("L,N", [(200, 16), (100, 128), (1, 16)])
+def test_ssd_chunk_parallel_init_state_rounds_twice(L, N):
+    """bf16 with an initial state: the kernels' y is their own y from a
+    zero state (rounded to bf16), plus the initial state's share added in
+    f32 and rounded again, bit for bit; the final state is the zero-state
+    one plus exp(cs_L) S0."""
+    B, H, P = 1, 2, 16
+    _, t = _ssd_inputs(B, L, H, P, N, "bf16", seed=L + N)
+    S0 = torch.from_numpy((np.random.default_rng(N).standard_normal(
+        (B, H, P, N)) * 0.3).astype(np.float32))
+    y0, S_zero, none = _ssd_chunk_parallel_emulation(*t)
+    y, S, share = _ssd_chunk_parallel_emulation(*t, init_state=S0)
+    assert none is None and share.dtype == torch.float32
+    assert torch.equal(y, (y0.float() + share).to(torch.bfloat16))
+    cs = torch.cumsum(t[1].double() * t[2].double(), dim=1)[:, -1]  # (B, H)
+    np.testing.assert_allclose(
+        S.numpy(), (S_zero.double() + torch.exp(cs)[..., None, None]
+                    * S0.double()).numpy(), atol=1e-5, rtol=1e-5)
+
+
 def test_ssd_scan_rejects_a_ragged_length():
     _, t = _ssd_inputs(1, 96, 2, 16, 16, "f32")
     with pytest.raises(ValueError, match="chunk"):

@@ -63,6 +63,61 @@ def test_policy_mlp_matches_pallas_and_actor_logits(Q, F, H1, H2):
     assert (got[Q // 2:] == np.float32(-1e9)).all()
 
 
+def _policy_kernel_emulation(x, w1, b1, w2, b2, w3, b3, mask):
+    """The CUDA kernel's order of work, on the CPU: the net zero-padded to
+    8 -> 64 -> 32 -> 1 (as the kernel stages any smaller one), every
+    first-layer unit one chain of FMAs over the features in order, every
+    second-layer unit one chain over the 64 hidden units in order (as the
+    row's eight lanes hand them over by shuffles), the logit one chain over
+    the 32 second-layer values in order (handed over the same way), then
+    the bias.  An f32 FMA is taken through float64, where the product is
+    exact."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    def pad(t, *shape):
+        out = torch.zeros(shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+    Q = x.shape[0]
+    x, w1, b1 = pad(x, Q, 8), pad(w1, 8, 64), pad(b1, 64)
+    w2, b2, w3 = pad(w2, 64, 32), pad(b2, 32), pad(w3[:, 0], 32)
+    a1 = torch.zeros((Q, 64))
+    for f in range(8):
+        a1 = fma(x[:, f:f + 1], w1[f][None], a1)
+    h1 = torch.tanh(a1 + b1)
+    a2 = torch.zeros((Q, 32))
+    for j in range(64):
+        a2 = fma(h1[:, j:j + 1], w2[j][None], a2)
+    g = torch.tanh(a2 + b2)
+    logits = torch.zeros(Q)
+    for k in range(32):
+        logits = fma(g[:, k], w3[k], logits)
+    logits = logits + b3
+    return torch.where(mask > 0, logits, torch.full_like(logits, -1e9))
+
+
+@pytest.mark.parametrize("Q", [1, 256, 300])
+@pytest.mark.parametrize("F,H1,H2", [(8, 64, 32), (8, 32, 16), (5, 40, 20)])
+def test_policy_kernel_arithmetic_matches_plain_and_pallas(Q, F, H1, H2):
+    """The kernel's order of work (emulated on the CPU; its eight lanes a
+    row hand hidden values over in a fixed order) against the plain version
+    and the Pallas kernel (interpret mode), within 1e-5, on the actor's net
+    and the two padded ones the card's tests use."""
+    x, layers, mask = _case(Q, F, H1, H2, seed=Q + H1)
+    mask[0] = 1.0                       # Q 1: one live row
+    tl = _torch_layers(layers)
+    args = (torch.tensor(x), *_flat(tl), torch.tensor(mask))
+    got = _policy_kernel_emulation(*args)
+    want = policy_mlp_ref(*args)
+    jl = [{k: jnp.asarray(v) for k, v in lyr.items()} for lyr in layers]
+    pallas = np.asarray(j_ops.policy_mlp(jnp.asarray(x), jl, jnp.asarray(mask)))
+    live = mask > 0
+    assert got.shape == (Q,) and np.abs(got.numpy()[live]).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL, rtol=0)
+
+
 def test_cpu_dispatch_is_the_plain_version():
     x, layers, mask = _case(256, 8, 64, 32)
     tl = _torch_layers(layers)
