@@ -43,12 +43,16 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     than 1e-4 apart), and time each at the serve shape below (device time
     from CUDA-graph replay), beside its plain version, its bound and, for
     attention, ``scaled_dot_product_attention`` as a yardstick (bf16
-    attention runs on the tensor cores, f32 attention on IEEE FMAs);
+    attention runs on the tensor cores, f32 attention on IEEE FMAs); every
+    router case is timed, with its route, and the serve shape's decode and
+    prefill calls also with a cold L2 (a 128 MiB ``zero_`` before each
+    call, its own time taken off);
 14. LM serve: ``jamba-v0.1-52b`` cut to one 8-layer superblock at full
     width, bf16, seeded random weights on the card: ``ServeEngine`` (batch
     4) serves 8 requests of 2,048-token prompts and 32 new tokens each
     through the kernel path, counting each kernel's launches; then a
-    profiled prefill and 4 decode steps give where the device time goes;
+    profiled prefill and 4 decode steps give where the device time goes
+    (and the router's calls and device µs per call in each);
 15. LM check: the first batch again through the plain path
     (``ModelImpl(attn="xla", ssd="xla", moe="xla")``) on the card: the
     prefill logits agree within the reference's own bf16 tolerance (0.15,
@@ -446,6 +450,9 @@ LM_REQUESTS = 8
 # would give ~1.4)
 PREFILL_TOL, DECODE_TOL, REL_RMS_TOL = 0.15, 0.2, 0.1
 PEAK_BF16_FLOPS = 989e12
+# a zero_ of this many bytes between router calls evicts the 50 MB L2, as
+# the expert GEMMs between two router calls of the served model do
+L2_FLUSH_BYTES = 128 << 20
 LM_TOL = {"float32": {"flash_attention": 2e-5, "ssd_scan": 2e-3},
           "bfloat16": {"flash_attention": 2e-2, "ssd_scan": 2e-2}}
 
@@ -485,11 +492,15 @@ def ssd_bound(B, L, H, P, N, chunk, dtype) -> tuple[float, str]:
 
 
 def router_bound(T, d, E, k, dtype) -> tuple[float, str]:
-    """x.W in f32 (W is f32), against x and W read once and the weights and
+    """x.W in f32 (W is f32): f32 FMAs, or for bf16 x three exact bf16
+    products on the tensor cores (W split in three bf16 parts), whichever
+    the card does sooner; against x and W read once and the weights and
     indices written once (the top-k passes are negligible)."""
     import torch
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = size * T * d + 4 * d * E + 8 * T * k
+    if dtype == torch.bfloat16:
+        return lm_bound(3 * 2.0 * T * d * E, nbytes, PEAK_BF16_FLOPS)
     return lm_bound(2.0 * T * d * E, nbytes, PEAK_F32_FLOPS)
 
 
@@ -642,10 +653,15 @@ def lm_kernel_phase(dev) -> dict:
     print(f"lm kernel: one ssd_scan call launches {ss.kernels_per_call()} "
           "CUDA kernels (chunk states, state passing, outputs)")
 
-    # -- MoE router: every registered (d, E, k), decode and prefill sizes
+    # -- MoE router: every registered (d, E, k), decode and prefill sizes,
+    # each timed; at the serve shape (bf16) also beside its plain version
+    # and with a cold L2
+    from repro_torch.kernels.ref import moe_router_ref
     err_max = 0.0
     routers = sorted({(c.d_model, c.num_experts, c.experts_per_token)
                       for c in cfgs if c.num_experts})
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush_ms = graph_ms(flush.zero_, calls=10, replays=5)
     for d, E, k in routers:
         for T in (LM_BATCH, LM_BATCH * LM_PROMPT):
             for dtype in (torch.bfloat16, torch.float32):
@@ -654,22 +670,32 @@ def lm_kernel_phase(dev) -> dict:
                 got_w, got_i = mr.moe_router(x, w, k)
                 err = router_check(x, w, k, got_w, got_i)
                 err_max = max(err_max, err)
+                ms = graph_ms(lambda: mr.moe_router(x, w, k))
+                b_ms, b_by = router_bound(T, d, E, k, dtype)
                 line = (f"lm kernel: moe_router T,d,E,k={T},{d},{E},{k} "
-                        f"{dtype} max_abs_err={err:.3e}")
+                        f"{dtype} route={mr.route(T, d, E, dtype)} "
+                        f"kernels_per_call="
+                        f"{mr.kernels_per_call(T, d, E, dtype)} "
+                        f"max_abs_err={err:.3e} device_us kernel="
+                        f"{ms * 1e3:.2f} bound={b_ms * 1e3:.3f} ({b_by})")
                 if (d, E, k) == (lm.d_model, lm.num_experts,
                                  lm.experts_per_token) and dtype == torch.bfloat16:
-                    from repro_torch.kernels.ref import moe_router_ref
-                    ms = graph_ms(lambda: mr.moe_router(x, w, k))
                     plain_ms = graph_ms(lambda: moe_router_ref(x, w, k))
-                    b_ms, b_by = router_bound(T, d, E, k, dtype)
+
+                    def cold():
+                        flush.zero_()
+                        mr.moe_router(x, w, k)
+                    cold_ms = graph_ms(cold, calls=10, replays=5) - flush_ms
                     if T == LM_BATCH * LM_PROMPT:
                         rows["moe_router"] = dict(ms=ms, plain_ms=plain_ms,
                                                   bound_ms=b_ms, bound_by=b_by,
                                                   library_ms=None)
-                    line += (f" device_us kernel={ms * 1e3:.2f} plain="
-                             f"{plain_ms * 1e3:.2f} bound={b_ms * 1e3:.3f} "
-                             f"({b_by})")
+                    line += (f" plain={plain_ms * 1e3:.2f} cold_l2="
+                             f"{cold_ms * 1e3:.2f} (a {L2_FLUSH_BYTES >> 20} "
+                             f"MiB zero_ first, its {flush_ms * 1e3:.2f} us "
+                             "taken off)")
                 print(line)
+    del flush
     rows["moe_router"]["max_abs_err"] = err_max
     torch.cuda.empty_cache()
     return rows
@@ -731,7 +757,9 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
     toks = torch.tensor(prompts[:LM_BATCH], dtype=torch.int32,
                         device=model.device)
 
-    def table(prof, wall_s, label):
+    from repro_torch.kernels import moe_router as mr
+
+    def table(prof, wall_s, label, router_calls):
         rows = []                       # device-side events: kernels, copies
         for e in prof.key_averages():
             t = getattr(e, "self_device_time_total", 0.0)
@@ -745,7 +773,8 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
         rows.sort(reverse=True)
         # the port's kernels by name stem (flash_attention_bf16_kernel<128>;
         # an SSD call's chunk_state_bf16, state_pass and chunk_scan_bf16;
-        # moe_router_kernel)
+        # a router call's moe_router_partial and moe_router_topk (decode) or
+        # moe_router_split_w and moe_router_mma (prefill))
         stems = {"flash_attention": ("flash_attention",),
                  "ssd_scan": ("chunk_state", "state_pass", "chunk_scan"),
                  "moe_router": ("moe_router",)}
@@ -763,21 +792,26 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
               f"idle_share={max(0.0, 1 - total / 1e3 / (wall_s * 1e3)):.3f} "
               + " ".join(f"{n}_ms={t / 1e3:.3f}"
                          f"({100 * t / total:.1f}%)" for n, t in ours.items())
-              + f" gemm_ms={gemm / 1e3:.3f}({100 * gemm / total:.1f}%)")
+              + f" gemm_ms={gemm / 1e3:.3f}({100 * gemm / total:.1f}%)"
+              + f" moe_router_calls={router_calls} moe_router_us_per_call="
+              f"{ours['moe_router'] / max(router_calls, 1):.2f}")
         for t, key, n in rows[:8]:
             print(f"where: {label}:   {t / 1e3:9.3f} ms {100 * t / total:5.1f}% "
                   f"x{n:<5d} {key[:90]}")
 
     with torch.inference_mode():
         torch.cuda.synchronize()
+        n0 = mr.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             logits, cache = model.prefill(params, toks, pad_to=engine.S)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        table(prof, wall, f"prefill (B {LM_BATCH} x {LM_PROMPT})")
+        table(prof, wall, f"prefill (B {LM_BATCH} x {LM_PROMPT})",
+              mr.launches - n0)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        n0 = mr.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -786,7 +820,8 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        table(prof, wall, f"decode (4 steps of B {LM_BATCH})")
+        table(prof, wall, f"decode (4 steps of B {LM_BATCH})",
+              mr.launches - n0)
 
 
 def lm_serve_phase(dev) -> dict:

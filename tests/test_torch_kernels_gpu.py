@@ -355,10 +355,15 @@ def _router_agrees(x, w, k, got_w, got_i):
     assert ((got_w - want_w)[set_sep].abs() <= 1e-5).all()
 
 
+# both sides of each route's crossover: split up to T 384 (bf16) or 1,536
+# (f32), mma (bf16) or tiled (f32) above
+_ROUTER_TS = [1, 2, 4, 64, 65, 257, 300, 1024, 8192]
+_ROUTER_SHAPES = [(4096, 16, 2), (1024, 32, 8), (4096, 128, 8)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 4, 300, 8192])
-@pytest.mark.parametrize("d,E,k", [(4096, 16, 2), (1024, 32, 8),
-                                   (4096, 128, 8)])
+@pytest.mark.parametrize("T", _ROUTER_TS)
+@pytest.mark.parametrize("d,E,k", _ROUTER_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_router_kernel_matches_plain_version(cuda_device, T, d, E, k,
                                                  dtype):
@@ -374,9 +379,12 @@ def test_moe_router_kernel_matches_plain_version(cuda_device, T, d, E, k,
 
 
 @pytest.mark.gpu
-def test_moe_router_kernel_breaks_ties_to_the_lowest_expert(cuda_device):
+@pytest.mark.parametrize("T", [4, 300, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_kernel_breaks_ties_to_the_lowest_expert(cuda_device, T,
+                                                            dtype):
     rng = np.random.default_rng(3)
-    x = _randn(rng, (300, 256), cuda_device)
+    x = _randn(rng, (T, 256), cuda_device, dtype)
     w = _randn(rng, (256, 16), cuda_device, scale=0.1)
     w[:, 8:] = w[:, :8]                     # every logit appears twice
     got_w, got_i = mr.moe_router(x, w, 2)
@@ -403,3 +411,103 @@ def test_moe_router_kernel_rejects_bad_inputs(cuda_device):
         mr.moe_router(x.t().contiguous().t(), w, 2)
     with pytest.raises(ValueError, match="outside"):
         mr.moe_router(x, w, 9)
+
+
+def _router_inputs(T, d, E, device, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (T, d), device, dtype),
+            _randn(rng, (d, E), device, scale=0.1 / np.sqrt(d)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype", [
+    ("split", torch.float32), ("split", torch.bfloat16),
+    ("tiled", torch.float32), ("tiled", torch.bfloat16),
+    ("mma", torch.bfloat16)])
+@pytest.mark.parametrize("T", [4, 300, 1024])
+@pytest.mark.parametrize("d,E,k", _ROUTER_SHAPES)
+def test_moe_router_every_route_matches_plain_version(cuda_device, route,
+                                                      dtype, T, d, E, k):
+    """Each of the three routes, forced, on both sides of the crossovers."""
+    x, w = _router_inputs(T, d, E, cuda_device, dtype, seed=T + E)
+    got_w, got_i = mr.run(x, w, k, route)
+    torch.cuda.synchronize()
+    _router_agrees(x, w, k, got_w, got_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 300, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_kernel_is_deterministic(cuda_device, T, dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    x, w = _router_inputs(T, 4096, 16, cuda_device, dtype, seed=T)
+    a_w, a_i = mr.moe_router(x, w, 2)
+    b_w, b_i = mr.moe_router(x, w, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a_w, b_w) and torch.equal(a_i, b_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_router_graph_replays_give_the_same_result(cuda_device, T,
+                                                       dtype):
+    """A captured CUDA graph of the router, replayed twice, gives the eager
+    call's bits both times."""
+    x, w = _router_inputs(T, 4096, 16, cuda_device, dtype, seed=T + 1)
+    want_w, want_i = mr.moe_router(x, w, 2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        mr.moe_router(x, w, 2)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_w, out_i = mr.moe_router(x, w, 2)
+    for _ in range(2):
+        out_w.zero_()
+        out_i.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_w, want_w) and torch.equal(out_i, want_i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,dtype,route,n", [
+    (4, torch.bfloat16, "split", 2), (300, torch.float32, "split", 2),
+    (8192, torch.bfloat16, "mma", 2), (8192, torch.float32, "tiled", 1)])
+def test_moe_router_kernels_per_call(cuda_device, T, dtype, route, n):
+    """route() and kernels_per_call() say what one call launches, and the
+    profiler sees that many router kernels; ``launches`` counts the call
+    once."""
+    from torch.profiler import ProfilerActivity, profile
+    assert mr.route(T, 4096, 16, dtype) == route
+    assert mr.kernels_per_call(T, 4096, 16, dtype) == n
+    x, w = _router_inputs(T, 4096, 16, cuda_device, dtype, seed=2)
+    mr.moe_router(x, w, 2)
+    torch.cuda.synchronize()
+    before = mr.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mr.moe_router(x, w, 2)
+        torch.cuda.synchronize()
+    assert mr.launches == before + 1
+    assert sum(e.count for e in prof.key_averages()
+               if "moe_router" in e.key) == n
+
+
+@pytest.mark.gpu
+def test_moe_router_takes_an_unaligned_x(cuda_device):
+    """A contiguous bf16 x whose rows are not 16-byte aligned goes to the
+    tiled route (the mma route's copies need aligned rows, and refuses it
+    when forced)."""
+    T, d = 8192, 4096
+    rng = np.random.default_rng(5)
+    flat = _randn(rng, (T * d + 1,), cuda_device, torch.bfloat16)
+    x = flat[1:].view(T, d)
+    w = _randn(rng, (d, 16), cuda_device, scale=0.1 / np.sqrt(d))
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got_w, got_i = mr.moe_router(x, w, 2)
+    torch.cuda.synchronize()
+    _router_agrees(x, w, 2, got_w, got_i)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mr.run(x, w, 2, "mma")

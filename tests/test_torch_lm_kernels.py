@@ -478,3 +478,167 @@ def test_ops_dispatch_rejects_mixed_and_unknown_devices():
     with pytest.raises(ValueError, match="device type"):
         ops.moe_router(torch.zeros(4, 8, device="meta"),
                        torch.zeros(8, 4, device="meta"), 2)
+
+
+# ------------------------------------------- the router kernels' order --
+# Test-only emulations of the CUDA router's three routes
+# (csrc/moe_router.cu), each summing the logits in its kernel's order in f32
+# (an FMA or a tensor-core sum taken in float64, rounded once to f32), then
+# the shared top-k: k first-maximum passes and a softmax over the k values.
+
+def _router_topk(logits, k):
+    """The kernels' top-k on f32 logits (T, E): the first maximum k times
+    (a taken expert becomes -1e30), weights exp(v - v_0) over their sum."""
+    work, vals, idxs = logits.clone(), [], []
+    for _ in range(k):
+        i = torch.argmax(work, dim=-1, keepdim=True)       # first maximum
+        vals.append(torch.gather(work, -1, i))
+        idxs.append(i)
+        work = work.scatter(-1, i, -1e30)
+    v = torch.cat(vals, dim=-1)
+    p = torch.exp(v - v[:, :1])
+    return p / p.sum(dim=-1, keepdim=True), torch.cat(idxs, -1).to(torch.int32)
+
+
+def _router_split_logits(x, w):
+    """The split route (decode): d in S slices of ``rows`` (32 rows for d up
+    to 4,096, S ~ 128); in slice s thread (j, e) chains its FMAs over rows
+    j, j + J, ... (J = 256 // E), the J sums are added in the order j = 0,
+    1, ...; then token t's S partials are added in runs [j c, (j + 1) c) in
+    order (c = ceil(S / J)) and the runs in the order j = 0, 1, ..."""
+    T, d = x.shape
+    E = w.shape[1]
+    rows = min(-(-(-(-d // 128)) // 32) * 32, 512)
+    S, J = -(-d // rows), 256 // E
+    pad = S * rows - d
+    xs = torch.nn.functional.pad(x.double(), (0, pad)).reshape(T, S, rows)
+    ws = torch.nn.functional.pad(w.double(), (0, 0, 0, pad)).reshape(S, rows,
+                                                                     E)
+    acc = torch.zeros((S, J, T, E))
+    for m in range(-(-rows // J)):
+        dd = torch.arange(J) + m * J
+        live = dd < rows
+        dd = dd.clamp(max=rows - 1)
+        prod = xs[:, :, dd].permute(1, 2, 0)[..., None] * ws[:, dd, None, :]
+        acc = torch.where(live[None, :, None, None],
+                          (acc.double() + prod).float(), acc)
+    part = torch.zeros((S, T, E))
+    for j in range(J):                  # in the block, j = 0, 1, ...
+        part = part + acc[:, j]
+    c = -(-S // J)
+    logits = torch.zeros((T, E))
+    for j in range(J):                  # runs of partials, each in order
+        run = torch.zeros((T, E))
+        for s in range(min(S, j * c), min(S, j * c + c)):
+            run = run + part[s]
+        logits = logits + run
+    return logits
+
+
+def _router_mma_logits(x, w):
+    """The mma route (bf16 prefill): d in tiles of TK (128 at E <= 16, else
+    64); 8 // MG k parts (MG = E_pad / 16), each a contiguous run of 16 KB
+    d of the tile; per tile and part the exact product (x . (hi + mid + lo)
+    = x . W) rounded to f32 is added to the part's running sum; the parts
+    are added in order at the end."""
+    T, d = x.shape
+    E = w.shape[1]
+    EP = 16 if E <= 16 else 32 if E <= 32 else 64 if E <= 64 else 128
+    KP = 8 // (EP // 16)
+    KB = 1 if KP >= 4 else 4 // KP
+    TK = 16 * KP * KB
+    nk = -(-d // TK)
+    pad = nk * TK - d
+    xs = torch.nn.functional.pad(x.double(), (0, pad)).reshape(T, nk, KP,
+                                                               TK // KP)
+    ws = torch.nn.functional.pad(w.double(), (0, 0, 0, pad)).reshape(
+        nk, KP, TK // KP, E)
+    chunks = torch.einsum("tnpc,npce->npte", xs, ws).float()
+    tot = torch.zeros((KP, T, E))
+    for kt in range(nk):
+        tot = tot + chunks[kt]
+    logits = tot[0]
+    for h in range(1, KP):
+        logits = logits + tot[h]
+    return logits
+
+
+def _router_tiled_logits(x, w):
+    """The tiled route (f32 prefill): one FMA chain over d = 0, 1, ... a
+    logit."""
+    xd, wd = x.double(), w.double()
+    acc = torch.zeros((x.shape[0], w.shape[1]))
+    for c in range(x.shape[1]):
+        acc = (acc.double() + xd[:, c, None] * wd[c]).float()
+    return acc
+
+
+_ROUTER_ROUTES = {"split": _router_split_logits, "mma": _router_mma_logits,
+                  "tiled": _router_tiled_logits}
+
+
+def _router_agrees(got_w, got_i, want_w, want_i, logits, k):
+    """Where the k-th and (k+1)-th logits are more than 1e-4 apart, the same
+    expert set and weights within 1e-5; where every gap among the top k + 1
+    is, the same experts in the same order."""
+    E = logits.shape[1]
+    top = torch.sort(logits, dim=-1, descending=True).values
+    gaps = top[:, :min(k + 1, E)].diff(dim=-1).neg()
+    set_sep = (gaps[:, k - 1] > 1e-4 if k < E
+               else torch.ones(len(top), dtype=torch.bool))
+    ord_sep = (gaps > 1e-4).all(dim=-1)
+    assert set_sep.float().mean() > 0.9 or len(set_sep) < 100
+    np.testing.assert_array_equal(got_i[set_sep].sort(-1).values.numpy(),
+                                  want_i[set_sep].sort(-1).values.numpy())
+    np.testing.assert_array_equal(got_i[ord_sep].numpy(),
+                                  want_i[ord_sep].numpy())
+    np.testing.assert_allclose(got_w[set_sep].numpy(),
+                               want_w[set_sep].numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 4, 300, 512])
+@pytest.mark.parametrize("d,E,k", [(4096, 16, 2), (1024, 32, 8),
+                                   (512, 128, 8)])
+@pytest.mark.parametrize("route", ["split", "mma", "tiled"])
+def test_moe_router_kernel_order_matches_plain_and_pallas(T, d, E, k, route):
+    """Each route's order of work (emulated on the CPU) against the plain
+    version and the Pallas kernel (interpret mode, one block for any T):
+    indices equal wherever the gaps exceed 1e-4, weights within 1e-5.  The
+    mma route takes bf16 x, split and tiled f32 x."""
+    rng = np.random.default_rng(T + d + E)
+    a = rng.standard_normal((T, d)).astype(np.float32)
+    w = (rng.standard_normal((d, E)) * 0.1 / np.sqrt(d)).astype(np.float32)
+    dtype = "bf16" if route == "mma" else "f32"
+    jx, tx = _pair(a, dtype)
+    tw = torch.from_numpy(w)
+    logits = _ROUTER_ROUTES[route](tx, tw)
+    got_w, got_i = _router_topk(logits, k)
+    ref_w, ref_i = moe_router_ref(tx, tw, k)
+    jw, ji = jops.moe_router(jx, jnp.asarray(w), k)
+    plain = tx.double() @ tw.double()
+    _router_agrees(got_w, got_i, ref_w, ref_i, plain, k)
+    _router_agrees(got_w, got_i, torch.from_numpy(np.array(jw)),
+                   torch.from_numpy(np.array(ji)), plain, k)
+
+
+@pytest.mark.parametrize("route", ["split", "mma", "tiled"])
+@pytest.mark.parametrize("T", [4, 300])
+def test_moe_router_kernel_order_ties_duplicated_experts(route, T):
+    """Duplicated router columns: each route's emulated logits are the same
+    bits for both copies, the top-k takes the lower copy first, and the
+    result equals the plain version's and the Pallas kernel's exactly."""
+    x, w = _router_inputs(T, 256, 16, seed=T, dup=True)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    if route == "mma":
+        tx = tx.bfloat16()
+    logits = _ROUTER_ROUTES[route](tx, tw)
+    assert torch.equal(logits[:, 8:], logits[:, :8])
+    got_w, got_i = _router_topk(logits, 2)
+    assert (got_i[:, 1] == got_i[:, 0] + 8).all()
+    ref_w, ref_i = moe_router_ref(tx, tw, 2)
+    jw, ji = jops.moe_router(jnp.asarray(tx.float().numpy(), DTYPES[
+        "bf16" if route == "mma" else "f32"][0]), jnp.asarray(w), 2)
+    assert torch.equal(got_i, ref_i)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(got_w.numpy(), ref_w.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(jw), atol=1e-5)

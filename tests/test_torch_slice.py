@@ -221,3 +221,33 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
                          text=True, env=env, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_port_data_files_are_package_data():
+    """Every ``data/`` directory of the port is listed in pyproject.toml's
+    package data, and its glob matches the files on disk, so a
+    non-editable install carries them (the trace-replay scenario reads
+    ``repro_torch/sched/data/trace_small.csv``)."""
+    import glob
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    src = os.path.join(REPO, "src")
+    data_dirs = sorted(dirpath for dirpath, _, _ in
+                       os.walk(os.path.join(src, "repro_torch"))
+                       if os.path.basename(dirpath) == "data")
+    assert data_dirs, "the port has no data directory"
+    for path in data_dirs:
+        package = os.path.relpath(os.path.dirname(path), src).replace(os.sep,
+                                                                      ".")
+        globs = [g for g in package_data.get(package, [])
+                 if g.startswith("data/")]
+        assert globs, f"{package} lists no data/ files in package-data"
+        on_disk = {os.path.basename(f) for f in os.listdir(path)
+                   if os.path.isfile(os.path.join(path, f))}
+        matched = {os.path.basename(f) for g in globs
+                   for f in glob.glob(os.path.join(src, *package.split("."), g))}
+        assert on_disk and on_disk <= matched, (package, on_disk - matched)
+    assert "trace_small.csv" in os.listdir(os.path.join(src, "repro_torch",
+                                                        "sched", "data"))

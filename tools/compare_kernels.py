@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the policy-MLP and SSD-scan kernels of several checkouts on one card.
+"""Time the policy-MLP, SSD-scan and MoE-router kernels of several checkouts
+on one card.
 
     python3 tools/compare_kernels.py ROOT [ROOT ...]
 
@@ -9,7 +10,9 @@ roots run one after another, each in a process of its own that imports that
 checkout's ``repro_torch``, builds its kernels and times them on the same
 seeded inputs: ``policy_mlp`` on the actor's 8 -> 64 -> 32 -> 1 net at the
 queue depths of ``chip_smoke.py`` phase 3 and the tail buckets of its main
-path, and ``ssd_scan`` at every SSD case of ``chip_smoke.py`` phase 13.
+path, ``ssd_scan`` at every SSD case of ``chip_smoke.py`` phase 13, and
+``moe_router`` at every router case of phase 13 (each registered (d, E, k)
+at decode T 4 and prefill T 8,192, f32 and bf16).
 Times are device µs per call from CUDA-graph replay
 (``chip_smoke.graph_ms``); every result is also held against the plain
 version at ``chip_smoke.py``'s tolerances.  Give the roots in turns (A B B
@@ -26,17 +29,24 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 POLICY_QS = (256, 300, 512, 1024, 2048, 2304, 4096, 16384)
+# the registered router shapes (d, E, k): jamba, granite, qwen3
+ROUTERS = ((4096, 16, 2), (1024, 32, 8), (4096, 128, 8))
 
 
 def cases():
     """(kernel, case) pairs in a fixed order: policy Q; SSD (B, L, H, P, N,
-    init, dtype name) as chip_smoke.py phase 13 runs them."""
+    init, dtype name) and router (T, d, E, k, dtype name) as chip_smoke.py
+    phase 13 runs them."""
     out = [("policy_mlp", (Q,)) for Q in POLICY_QS]
     for shape, init in (((4, 2048, 128, 64, 16), False),
                         ((1, 2048, 48, 64, 128), True),
                         ((1, 200, 48, 64, 128), True)):
         for dtype in ("bfloat16", "float32"):
             out.append(("ssd_scan", shape + (init, dtype)))
+    for d, E, k in ROUTERS:
+        for T in (4, 8192):
+            for dtype in ("bfloat16", "float32"):
+                out.append(("moe_router", (T, d, E, k, dtype)))
     return out
 
 
@@ -46,13 +56,15 @@ def one(root: Path) -> None:
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
-    from chip_smoke import ATOL, LM_TOL, graph_ms
-    from repro_torch.kernels import policy_mlp as pm, ssd_scan as ss
+    from chip_smoke import ATOL, LM_TOL, graph_ms, router_check
+    from repro_torch.kernels import moe_router as mr, policy_mlp as pm
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import policy_mlp_ref, ssd_scan_ref
 
     assert Path(pm.__file__).resolve().is_relative_to(root.resolve())
     pm.build()
     ss.build()
+    mr.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     for seed, (kernel, case) in enumerate(cases()):
@@ -71,6 +83,16 @@ def one(root: Path) -> None:
                          - policy_mlp_ref(x, *flat, mask)).abs().max())
             ok = err <= ATOL
             us = graph_ms(lambda: pm.policy_mlp(x, *flat, mask)) * 1e3
+        elif kernel == "moe_router":
+            T, d, E, k, name = case
+            x = randn((T, d), getattr(torch, name))
+            w = randn((d, E), scale=0.1 / d ** 0.5)
+            got_w, got_i = mr.moe_router(x, w, k)
+            try:
+                err, ok = router_check(x, w, k, got_w, got_i), True
+            except RuntimeError:
+                err, ok = float("nan"), False
+            us = graph_ms(lambda: mr.moe_router(x, w, k)) * 1e3
         else:
             B, L, H, P, N, init, name = case
             dtype = getattr(torch, name)
