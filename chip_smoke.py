@@ -59,15 +59,41 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     ``tests/test_models_smoke.py``), each decode step's within its 0.2 up to
     each row's first differing token (reported with its logit gap), with
     the difference's RMS within a tenth of the logits' RMS; all logits are
-    finite.
+    finite;
+16. train: ``RLTuneTrainer`` on the card at the paper's settings and full
+    width (helios, FCFS base, wait, batches of 256 jobs, the pro variant
+    with MILP placement, ``PPOConfig()``: actor 8->64->32->1, critic
+    1280->128->64->1, queue 256, ``max_steps`` 512, 4 epochs), with
+    ``batches_per_epoch`` cut from the paper's 100 to 8, then
+    ``evaluate(num_batches=2)``: per batch the reward, loss, decisions and
+    recorded steps; the wall time split into simulation, ``act`` and
+    update, the device ms per ``ppo_update_step`` (CUDA events), the
+    policy-MLP launches by Q and the peak memory, and a profile of one
+    more update and 64 ``act`` calls (device busy ms, idle share, kernel
+    events; on copies, after the launches are read); every reward and loss
+    finite, every update changing the parameters, no masked action
+    sampled, at least one launch per recorded step;
+17. train check: from phase 16's agent and its last padded batch, the
+    card's PPO loss, gradients, ``adam_update`` on identical gradients and
+    one ``ppo_update_step`` against the CPU's (tolerances at
+    ``TRAIN_LOSS_TOL`` and below); then a small training (helios, batch
+    64, 2 batches) on the card and on the CPU with the same numpy Gumbel
+    noise: the same actions up to the first near-tie (top-two gap under
+    1e-4, reported) and the same rewards wherever the actions agree;
+18. stream train: ``StreamingTrainer(StreamingConfig())`` on the card for
+    2 streams (cut from 8), then its greedy evaluation on ``flash-crowd``
+    against FCFS; ``run_live`` on a 256-job Helios batch with one SLA user:
+    no ranking puts an SLA job behind a non-SLA job.
 
-Then one JSON line describing all five kernels (times, launches, bounds), and as
+Then one JSON line describing all five kernels (times, launches, bounds;
+``launches_by_path`` gives the policy MLP's on each path), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -954,6 +980,521 @@ def lm_serve_phase(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------ PPO training slice --
+# phase 16: the paper's settings (Sec. 3.2: helios, FCFS base, wait, batches
+# of 256 jobs, pro variant, PPOConfig() at the published widths), with
+# batches_per_epoch cut from the paper's 100
+TRAIN_BATCHES = 8
+EVAL_BATCHES = 2
+# phase 17's small run on the card and on the CPU
+SMALL_TRAIN = dict(trace="helios", base_policy="fcfs", batch_size=64,
+                   batches_per_epoch=2, epochs=1)
+NEAR_TIE = 1e-4
+# the card against the CPU (TF32 off on both, IEEE f32 sums in another
+# order): loss rel 1e-5; each gradient leaf within 1e-4 of its largest CPU
+# entry, the last actor bias (zero in exact arithmetic) below 1e-5 of the
+# last actor weight's largest gradient; after one PPO step all parameters
+# but a 1e-4 fraction within 1e-6, the rest within 2 * lr
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# adam_update on identical gradients: two ulps of the parameter (the clip's
+# global norm is summed in another order) plus 1e-5 of the step (CUDA's
+# powf is within 2 ulps, and 1 - 0.999 ** t magnifies an ulp of 0.999 ** t
+# some 30-fold at t ~ 33, so the step may differ by ~16 ulps of itself)
+ADAM_ULPS = 2
+ADAM_STEP_RTOL = 1e-5
+STEP_ATOL = 1e-6
+STEP_FRACTION = 1e-4
+# phase 18: StreamingConfig() with streams cut from 8
+STREAMS = 2
+LIVE_JOBS = 256
+
+
+def tree_leaves(tree) -> list[tuple[str, object]]:
+    """(name, tensor) of each leaf of an agent's ``params``-shaped tree."""
+    return [(f"{net}[{i}].{k}", lyr[k]) for net in ("actor", "critic")
+            for i, lyr in enumerate(tree[net]) for k in ("w", "b")]
+
+
+def tree_to(tree, device):
+    return {net: [{k: t.detach().to(device) for k, t in lyr.items()}
+                  for lyr in layers] for net, layers in tree.items()}
+
+
+def profile_training(agent, batch) -> None:
+    """Device time of one update (``update_epochs`` steps on a copy of the
+    agent's net and Adam state, on phase 16's last batch) and of 64
+    exploring ``act`` calls on its first state (torch.profiler): device
+    busy ms, idle share of the wall and the kernels that took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import agent as agent_mod
+
+    ppo = agent.cfg
+    net = copy.deepcopy(agent.net)
+    state = {"m": tree_to(agent.opt_state["m"], agent.device),
+             "v": tree_to(agent.opt_state["v"], agent.device),
+             "t": agent.opt_state["t"].clone()}
+    ov, cv, mask = (batch[k][0].cpu().numpy() for k in ("ov", "cv", "mask"))
+
+    def update():
+        nonlocal state
+        for _ in range(ppo.update_epochs):
+            _, state, loss = agent_mod.ppo_update_step(
+                net, state, batch, clip_eps=ppo.clip_eps,
+                value_coef=ppo.value_coef, entropy_coef=ppo.entropy_coef,
+                lr=ppo.lr, max_norm=ppo.max_grad_norm)
+        float(loss)
+
+    def acts():
+        for _ in range(64):
+            agent.act(ov, cv, mask, explore=True, record=False)
+
+    for label, fn in ((f"one update ({ppo.update_epochs} steps)", update),
+                      ("64 act calls", acts)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(((e.self_device_time_total, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        total = sum(t for t, _, _ in rows)
+        if total <= 0:
+            print(f"train profile: {label}: the profiler saw no device time "
+                  "(not measured)")
+            continue
+        print(f"train profile: {label}: wall_ms={wall * 1e3:.3f} "
+              f"device_busy_ms={total / 1e3:.3f} idle_share="
+              f"{max(0.0, 1 - total / 1e3 / (wall * 1e3)):.3f} device events "
+              f"{sum(n for _, _, n in rows)}; top: " + "; ".join(
+                  f"{t / 1e3:.3f} ms x{n} {key[:60]}"
+                  for t, key, n in rows[:5]))
+
+
+def train_phase(dev) -> dict:
+    """16. train: ``RLTuneTrainer`` on the card at the paper's settings."""
+    import numpy as np
+    import torch
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.kernels import ops, policy_mlp as pm
+    from repro_torch.rl import RLTuneTrainer, TrainerConfig
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32,
+          "TF32 is on at the start of phase 16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainerConfig(trace="helios", base_policy="fcfs", metric="wait",
+                        batch_size=256, batches_per_epoch=TRAIN_BATCHES,
+                        variant="pro")
+    ppo = cfg.ppo
+    print(f"train: batches_per_epoch cut from the paper's 100 to "
+          f"{TRAIN_BATCHES} (then evaluate(num_batches={EVAL_BATCHES}))")
+    print(f"train: helios, base fcfs, metric wait, batch 256, variant pro "
+          f"(milp); PPOConfig() actor 8->{ppo.actor_hidden[0]}->"
+          f"{ppo.actor_hidden[1]}->1, critic 1280->{ppo.critic_hidden[0]}->"
+          f"{ppo.critic_hidden[1]}->1, queue 256, max_steps {ppo.max_steps}, "
+          f"{ppo.update_epochs} epochs, lr {ppo.lr}")
+    tr = RLTuneTrainer(cfg, device=dev)
+    agent = tr.agent
+    acc = {"act_s": 0.0, "acts": 0, "masked": 0, "pair_s": 0.0,
+           "update_s": 0.0}
+    by_q: dict[int, int] = {}
+    events: list = []
+    kept: dict = {}
+    rows: list[dict] = []
+    real_act, real_pair = agent.act, tr.run_batch_pair
+    real_finish, real_step = agent.finish_episode, agent_mod.ppo_update_step
+    real_policy_mlp = ops.policy_mlp
+
+    def counted_policy_mlp(x, params, mask):
+        by_q[x.shape[0]] = by_q.get(x.shape[0], 0) + 1
+        return real_policy_mlp(x, params, mask)
+
+    def timed_act(ov, cv, mask, explore=True, record=True):
+        t0 = time.perf_counter()
+        action, logits = real_act(ov, cv, mask, explore=explore,
+                                  record=record)
+        acc["act_s"] += time.perf_counter() - t0
+        acc["acts"] += 1
+        acc["masked"] += int(not mask[action] > 0)
+        return action, logits
+
+    def timed_pair(batch, *, explore, use_estimates):
+        t0 = time.perf_counter()
+        base, rl = real_pair(batch, explore=explore,
+                             use_estimates=use_estimates)
+        acc["pair_s"] += time.perf_counter() - t0
+        if explore:
+            rows.append({"decisions": (base.decisions, rl.decisions)})
+        return base, rl
+
+    def timed_step(net, opt_state, batch, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        kept["batch"] = batch
+        start.record()
+        out = real_step(net, opt_state, batch, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def timed_finish(reward):
+        before = [t.detach().clone() for _, t in tree_leaves(agent.params)]
+        t0 = time.perf_counter()
+        out = real_finish(reward)
+        acc["update_s"] += time.perf_counter() - t0
+        changed = any(not torch.equal(a, b) for a, (_, b) in
+                      zip(before, tree_leaves(agent.params)))
+        rows[-1].update(reward=reward, loss=out["loss"], steps=out["steps"],
+                        Tc=min(out["steps"], ppo.max_steps),
+                        updated=out["updated"], changed=changed)
+        return out
+
+    agent.act, tr.run_batch_pair = timed_act, timed_pair
+    agent.finish_episode = timed_finish
+    agent_mod.ppo_update_step = timed_step
+    ops.policy_mlp = counted_policy_mlp
+    pm.launches = 0
+    try:
+        t0 = time.perf_counter()
+        hist = tr.train()[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = pm.launches
+        train_acc = dict(acc)
+        for k in ("act_s", "acts", "pair_s"):
+            acc[k] = 0
+        t0 = time.perf_counter()
+        ev = tr.evaluate(num_batches=EVAL_BATCHES)
+        torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+    finally:
+        agent_mod.ppo_update_step = real_step
+        ops.policy_mlp = real_policy_mlp
+        agent.act, agent.finish_episode = real_act, real_finish
+        tr.run_batch_pair = real_pair
+    launches = pm.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile_training(agent, kept["batch"])
+    for i, r in enumerate(rows):
+        print(f"train: batch {i} reward={r['reward']:+.6f} "
+              f"loss={r['loss']:+.6f} decisions base/rl={r['decisions'][0]}/"
+              f"{r['decisions'][1]} steps={r['steps']} Tc={r['Tc']}")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    sim_s = train_acc["pair_s"] - train_acc["act_s"]
+    print(f"train: wall_s={wall:.3f} = simulation (both pipelines, less act) "
+          f"{sim_s:.3f} + act {train_acc['act_s']:.3f} "
+          f"({train_acc['acts']} calls, "
+          f"{train_acc['act_s'] / max(train_acc['acts'], 1) * 1e3:.4f} ms "
+          f"each) + update {train_acc['update_s']:.3f} + other "
+          f"{wall - train_acc['pair_s'] - train_acc['update_s']:.3f}")
+    print(f"train: ppo_update_step device ms (CUDA events) over "
+          f"{len(step_ms)} steps: mean={np.mean(step_ms):.4f} "
+          f"p50={np.percentile(step_ms, 50):.4f} min={min(step_ms):.4f} "
+          f"max={max(step_ms):.4f}; per update (all epochs) "
+          f"{train_acc['update_s'] / len(rows) * 1e3:.3f} ms wall")
+    print(f"train: evaluate({EVAL_BATCHES}) wall_s={eval_wall:.3f} "
+          f"(act {acc['act_s']:.3f} s over {acc['acts']} calls): "
+          + json.dumps(ev))
+    print(f"train: policy_mlp launches {launches} (train {train_launches}, "
+          f"evaluate {launches - train_launches}) by Q "
+          f"{dict(sorted(by_q.items()))}; peak memory {peak:.3f} GiB")
+    check(len(rows) == TRAIN_BATCHES, f"{len(rows)} batches trained")
+    check(all(np.isfinite(r["reward"]) and np.isfinite(r["loss"])
+              for r in rows), "a reward or loss is not finite")
+    check(all(r["updated"] == 1.0 and r["changed"] for r in rows),
+          "an update left the parameters unchanged")
+    check(train_acc["masked"] == 0,
+          f"{train_acc['masked']} sampled actions are masked")
+    steps = sum(r["steps"] for r in rows)
+    check(train_launches >= steps > 0,
+          f"policy_mlp launches {train_launches} < recorded steps {steps}")
+    check(all(np.isfinite(v) for side in ev.values() for v in side.values()),
+          "evaluate gave a non-finite metric")
+    return {"agent": agent, "batch": kept["batch"], "launches": launches,
+            "step_ms": float(np.mean(step_ms))}
+
+
+def grads_agree(g_card, g_cpu, rtol: float) -> float:
+    """Checks each leaf of the card's gradients against the CPU's; returns
+    the worst error relative to its leaf's largest CPU entry."""
+    ref = {n: t for n, t in tree_leaves(g_cpu)}
+    worst = 0.0
+    for name, got in tree_leaves(g_card):
+        got = got.cpu()
+        if name == "actor[2].b":
+            scale = ref["actor[2].w"].abs().max().item()
+            check(got.abs().max().item() <= 1e-5 * scale,
+                  f"grad {name}: {got.abs().max().item():.3e} not rounding "
+                  f"noise against {scale:.3e}")
+            continue
+        check(bool(got.isfinite().all()), f"grad {name} is not finite")
+        err = (got - ref[name]).abs().max().item()
+        scale = ref[name].abs().max().item()
+        check(err <= rtol * scale, f"grad {name}: err {err:.3e} > "
+              f"{rtol} x {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def params_agree(got, want, bound: float) -> tuple[int, int, float]:
+    """All entries within ``bound``, all but a STEP_FRACTION within
+    STEP_ATOL; returns (entries over STEP_ATOL, entries, largest error)."""
+    total = loose = 0
+    worst = 0.0
+    for (name, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
+        err = (g.detach().cpu() - w.detach().cpu()).abs()
+        check(err.max().item() <= bound,
+              f"param {name}: err {err.max().item():.3e} > {bound}")
+        total += err.numel()
+        loose += int((err > STEP_ATOL).sum())
+        worst = max(worst, err.max().item())
+    check(loose <= STEP_FRACTION * total,
+          f"{loose} of {total} parameters differ by more than {STEP_ATOL}")
+    return loose, total, worst
+
+
+def train_check_phase(dev, trained: dict) -> None:
+    """17. train check: the card against the CPU on phase 16's agent."""
+    import numpy as np
+    import torch
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.rl import RLTuneTrainer, TrainerConfig
+
+    agent = trained["agent"]
+    ppo = agent.cfg
+    kw = dict(clip_eps=ppo.clip_eps, value_coef=ppo.value_coef,
+              entropy_coef=ppo.entropy_coef)
+    card_net = copy.deepcopy(agent.net)
+    cpu_net = copy.deepcopy(agent.net).to("cpu")
+    batch = trained["batch"]
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    n_valid = int(cpu_batch["valid"].sum().item())
+    l_card, g_card = agent_mod._loss_and_grads(card_net, batch, **kw)
+    l_cpu, g_cpu = agent_mod._loss_and_grads(cpu_net, cpu_batch, **kw)
+    d_loss = abs(l_card.item() - l_cpu.item())
+    check(d_loss <= TRAIN_LOSS_TOL * max(1.0, abs(l_cpu.item())),
+          f"loss card {l_card.item()} vs CPU {l_cpu.item()}")
+    worst_g = grads_agree(g_card, g_cpu, TRAIN_GRAD_RTOL)
+    # adam_update on identical gradients (the CPU's), from the agent's state
+    state_cpu = {"m": tree_to(agent.opt_state["m"], "cpu"),
+                 "v": tree_to(agent.opt_state["v"], "cpu"),
+                 "t": agent.opt_state["t"].cpu()}
+    state_card = {"m": tree_to(state_cpu["m"], dev),
+                  "v": tree_to(state_cpu["v"], dev),
+                  "t": state_cpu["t"].to(dev)}
+    with torch.no_grad():
+        p_card, s_card = agent_mod.adam_update(
+            tree_to(card_net.params, dev), tree_to(g_cpu, dev), state_card,
+            ppo.lr, max_norm=ppo.max_grad_norm)
+        p_cpu, s_cpu = agent_mod.adam_update(
+            tree_to(cpu_net.params, "cpu"), g_cpu, state_cpu, ppo.lr,
+            max_norm=ppo.max_grad_norm)
+    check(s_card["t"].item() == s_cpu["t"].item(), "Adam step counts differ")
+    diff = ulps = 0
+    total = 0
+    for (name, a), (_, b), (_, old) in zip(tree_leaves(p_card),
+                                           tree_leaves(p_cpu),
+                                           tree_leaves(cpu_net.params)):
+        a = a.cpu().numpy()
+        b = b.numpy()
+        old = old.detach().numpy()
+        spacing = np.spacing(np.maximum.reduce(
+            [np.abs(a), np.abs(b), np.abs(old)]))
+        err = np.abs(a - b)
+        check(bool((err <= ADAM_ULPS * spacing +
+                    ADAM_STEP_RTOL * np.abs(old - b)).all()),
+              f"adam_update {name}: card and CPU differ beyond "
+              f"{ADAM_ULPS} ulps + {ADAM_STEP_RTOL} of the step")
+        diff += int((err > 0).sum())
+        ulps = max(ulps, float((err / spacing).max()))
+        total += err.size
+    # one full ppo_update_step on each side from the same state
+    _, _, loss_card = agent_mod.ppo_update_step(
+        card_net, state_card, batch, lr=ppo.lr, max_norm=ppo.max_grad_norm,
+        **kw)
+    _, _, loss_cpu = agent_mod.ppo_update_step(
+        cpu_net, state_cpu, cpu_batch, lr=ppo.lr, max_norm=ppo.max_grad_norm,
+        **kw)
+    loose, n_params, worst_p = params_agree(card_net.params, cpu_net.params,
+                                            2 * ppo.lr)
+    print(f"train check: phase 16's last padded batch ({n_valid} valid of "
+          f"{cpu_batch['valid'].numel()} steps), its agent's parameters and "
+          f"Adam state (t={state_cpu['t'].item():.0f}): loss card "
+          f"{l_card.item():.9f} CPU {l_cpu.item():.9f} (|d| {d_loss:.3e}, "
+          f"tol {TRAIN_LOSS_TOL} rel); gradients within "
+          f"{worst_g:.3e} of each leaf's max (tol {TRAIN_GRAD_RTOL}); "
+          f"adam_update on identical gradients: {diff} of {total} entries "
+          f"differ, at most {ulps:.1f} ulps (tol {ADAM_ULPS} ulps + "
+          f"{ADAM_STEP_RTOL} of the step); one ppo_update_step: "
+          f"{loose} of {n_params} parameters beyond {STEP_ATOL} (tol "
+          f"{STEP_FRACTION} of them), largest {worst_p:.3e} (tol "
+          f"{2 * ppo.lr}); step losses {loss_card.item():.9f} / "
+          f"{loss_cpu.item():.9f}")
+
+    # a small training on the card and on the CPU with the same injected noise
+    runs = {}
+    real_step = agent_mod.policy_step
+    for device in (dev, "cpu"):
+        rng = np.random.default_rng(2024)
+        log: list[tuple[int, float]] = []
+
+        def injected(net, ov, cv, mask, generator=None, gumbel=None):
+            g = torch.from_numpy(rng.gumbel(size=ov.shape[0])
+                                 .astype(np.float32)).to(ov.device)
+            out = real_step(net, ov, cv, mask, gumbel=g)
+            top2 = torch.topk(out["logits"] + g, 2).values
+            log.append((int(out["action"]), float(top2[0] - top2[1])))
+            return out
+
+        tr = RLTuneTrainer(TrainerConfig(**SMALL_TRAIN), device=device)
+        tr.agent.load_state_dict(agent.state_dict())
+        bounds = []
+        real_finish = tr.agent.finish_episode
+
+        def marked(reward, _real=real_finish, _log=log, _b=bounds):
+            _b.append(len(_log))
+            return _real(reward)
+        tr.agent.finish_episode = marked
+        agent_mod.policy_step = injected
+        try:
+            t0 = time.perf_counter()
+            hist = tr.train()[0]
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            agent_mod.policy_step = real_step
+        runs[str(device)] = (log, bounds, hist, wall)
+    (log_c, bounds_c, hist_c, wall_c), (log_h, bounds_h, hist_h, wall_h) = \
+        runs[str(dev)], runs["cpu"]
+    n = min(len(log_c), len(log_h))
+    first_tie = next((i for i in range(n)
+                      if min(log_c[i][1], log_h[i][1]) < NEAR_TIE), n)
+    first_diff = next((i for i in range(n) if log_c[i][0] != log_h[i][0]),
+                      None)
+    check(first_diff is None or first_diff >= first_tie,
+          f"small training: action {first_diff} differs before the first "
+          f"near-tie ({first_tie})")
+    if first_diff is None:
+        check(len(log_c) == len(log_h), "small training: step counts differ")
+    agree = 0
+    for b, (end_c, end_h) in enumerate(zip(bounds_c, bounds_h)):
+        start = bounds_c[b - 1] if b else 0
+        same = end_c == end_h and all(log_c[i][0] == log_h[i][0]
+                                      for i in range(start, end_c))
+        if same:
+            check(hist_c.rewards[b] == hist_h.rewards[b],
+                  f"small training batch {b}: the same actions but rewards "
+                  f"{hist_c.rewards[b]} and {hist_h.rewards[b]}")
+            agree += 1
+    if first_tie < n:
+        gap = min(log_c[first_tie][1], log_h[first_tie][1])
+        tie_note = (f"first near-tie (top-two gap < {NEAR_TIE}) at step "
+                    f"{first_tie}, gap {gap:.3e}")
+    else:
+        tie_note = f"no near-tie in {n} steps"
+    actions_note = "all equal" if first_diff is None else \
+        f"first differ at step {first_diff}"
+    print(f"train check: small training {SMALL_TRAIN['trace']} batch "
+          f"{SMALL_TRAIN['batch_size']} x {SMALL_TRAIN['batches_per_epoch']} "
+          f"with numpy Gumbel noise on both sides: {len(log_c)} / "
+          f"{len(log_h)} steps (card / CPU), actions {actions_note}; "
+          f"{tie_note}; "
+          f"rewards card {hist_c.rewards} CPU {hist_h.rewards}"
+          f" ({agree} of {len(bounds_c)} batches with equal actions, equal "
+          f"rewards); losses card {hist_c.losses} CPU {hist_h.losses}; wall "
+          f"card {wall_c:.3f} s, CPU {wall_h:.3f} s")
+
+
+def stream_train_phase(dev) -> dict:
+    """18. stream train: ``StreamingTrainer`` and ``run_live`` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import generate_trace, make_cluster
+    from repro_torch.core import live
+    from repro_torch.kernels import policy_mlp as pm
+    from repro_torch.rl import StreamingConfig, StreamingTrainer
+
+    cfg = StreamingConfig()
+    print(f"stream train: streams cut from StreamingConfig()'s "
+          f"{cfg.streams} to {STREAMS}; scenarios {cfg.scenarios}, "
+          f"{cfg.num_jobs} jobs, horizon {cfg.horizon}, warm-up "
+          f"{cfg.warmup_windows} windows")
+    tr = StreamingTrainer(cfg, device=dev)
+    pm.launches = 0
+    t0 = time.perf_counter()
+    eps = tr.train(streams=STREAMS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = pm.launches
+    for e in eps:
+        print(f"stream train: {e.scenario} steps={e.steps} "
+              f"windows={e.windows} reward_sum={e.reward_sum:+.6f} "
+              f"loss={e.loss:+.6f} updated={e.updated} terminal={e.terminal}")
+    steps = sum(e.steps for e in eps)
+    check(eps and all(np.isfinite(e.reward_sum) and np.isfinite(e.loss)
+                      for e in eps), "stream train: non-finite reward or loss")
+    check(any(e.updated for e in eps), "stream train: no update ran")
+    check(train_launches >= steps > 0,
+          f"stream train: launches {train_launches} < steps {steps}")
+    t0 = time.perf_counter()
+    ev = tr.evaluate(("flash-crowd",), baselines=("fcfs",))
+    eval_wall = time.perf_counter() - t0
+    check(all(m["completed"] == cfg.num_jobs and
+              all(np.isfinite(v) for v in m.values())
+              for m in ev["flash-crowd"].values()),
+          f"stream evaluate: {ev}")
+    print(f"stream train: {len(eps)} episodes, {steps} steps, wall_s="
+          f"{wall:.3f}, policy_mlp launches {train_launches}; evaluate "
+          f"flash-crowd wall_s={eval_wall:.3f}: " + json.dumps(ev))
+
+    jobs = generate_trace("helios", LIVE_JOBS, seed=9)
+    sla_user = jobs[10].user
+    behind = [0]
+    rankings = [0]
+    real_rank = live.LivePrioritizer.rank
+
+    def rank(self, q, cluster, now):
+        order = real_rank(self, q, cluster, now)
+        flags = [q[i].user == sla_user for i in order]
+        behind[0] += int(flags != sorted(flags, reverse=True))
+        rankings[0] += 1
+        return order
+    live.LivePrioritizer.rank = rank
+    pm.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res, rescans = live.run_live(
+            make_cluster("helios"), jobs, tr.agent,
+            live.LiveConfig(sla_users=frozenset({sla_user})))
+        torch.cuda.synchronize()
+        live_wall = time.perf_counter() - t0
+    finally:
+        live.LivePrioritizer.rank = real_rank
+    live_launches = pm.launches
+    done = sum(1 for j in res.jobs if j.finish_time >= 0)
+    check(done == LIVE_JOBS, f"run_live completed {done} of {LIVE_JOBS}")
+    check(rescans >= 1 and live_launches >= rescans,
+          f"run_live: {rescans} rescans, {live_launches} launches")
+    check(behind[0] == 0, f"run_live: {behind[0]} of {rankings[0]} rankings "
+          f"put an SLA job behind a non-SLA job")
+    n_sla = sum(1 for j in jobs if j.user == sla_user)
+    print(f"live: helios {LIVE_JOBS} jobs seed 9, SLA user {sla_user} "
+          f"({n_sla} jobs), rescan 60 s, milp: {rescans} rescans, "
+          f"{rankings[0]} rankings, none with an SLA job behind a non-SLA "
+          f"job; avg wait {res.avg_wait:.3f} s, decisions {res.decisions}, "
+          f"policy_mlp launches {live_launches}, wall_s={live_wall:.3f}")
+    return {"stream-train": train_launches, "live": live_launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1220,6 +1761,15 @@ def main() -> int:
     # -------------------------------------------- 14-15. LM serve, check --
     lm_launches = lm_serve_phase(dev)
 
+    # ---------------------------------------------------------- 16. train --
+    trained = train_phase(dev)
+
+    # ---------------------------------------------------- 17. train check --
+    train_check_phase(dev, trained)
+
+    # -------------------------------------------------- 18. stream train --
+    rl_launches = stream_train_phase(dev)
+
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
     q_ms, q_plain_ms, q_b_ms, q_b_by = q_timings[MAIN_B]
@@ -1230,6 +1780,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/policy_mlp.cu",
         "replaces": "src/repro/kernels/policy_mlp.py:35",
         "launches": launches,
+        "launches_by_path": {"philly-4096": launches,
+                             "train": trained["launches"], **rl_launches},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -47,7 +47,7 @@ def _state(seed: int, n_valid: int):
 def _pair(params: dict):
     """(reference params as jnp, port ActorCritic on the CPU)."""
     jp = jax.tree.map(jnp.asarray, params)
-    net = T.init_params(T.PPOConfig())
+    net = T.init_params(T.PPOConfig(), device="cpu")
     convert.load_numpy_params(net, params)
     return jp, net
 
@@ -108,7 +108,7 @@ def test_policy_step_with_injected_gumbel(seed):
 
 
 def test_policy_step_samples_inside_mask():
-    net = T.init_params(T.PPOConfig())
+    net = T.init_params(T.PPOConfig(), device="cpu")
     ov, cv, mask = _state(4, 12)
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
@@ -168,10 +168,10 @@ def test_state_dict_round_trip_and_shape_check():
 
 def test_init_params_seeded_and_scaled():
     cfg = T.PPOConfig(seed=4)
-    a, b = T.init_params(cfg), T.init_params(cfg)
+    a, b = T.init_params(cfg, device="cpu"), T.init_params(cfg, device="cpu")
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
-    other = T.init_params(T.PPOConfig(seed=5))
+    other = T.init_params(T.PPOConfig(seed=5), device="cpu")
     assert not torch.equal(a.actor.layers[0].w, other.actor.layers[0].w)
     shapes = {k: [tuple(l["w"].shape) for l in v] for k, v in a.params.items()}
     assert shapes == {"actor": [(8, 64), (64, 32), (32, 1)],
@@ -183,9 +183,21 @@ def test_init_params_seeded_and_scaled():
 
 
 def test_agent_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The agent, ``init_params`` and both trainers run on the card unless
+    given ``device="cpu"``, and raise without CUDA."""
+    from repro_torch.rl import (RLTuneTrainer, StreamingConfig,
+                                StreamingTrainer, TrainerConfig)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        T.PPOAgent()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        T.PPOAgent(device="cuda")
+    small = TrainerConfig(batch_size=8, batches_per_epoch=1)
+    for make in (T.PPOAgent, lambda **kw: T.init_params(T.PPOConfig(), **kw),
+                 lambda **kw: RLTuneTrainer(small, **kw),
+                 lambda **kw: StreamingTrainer(StreamingConfig(), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(device="cuda")
     assert T.PPOAgent(device="cpu").device == torch.device("cpu")
+    assert T.init_params(T.PPOConfig(), device="cpu").actor.layers[0].w \
+        .device == torch.device("cpu")
+    assert RLTuneTrainer(small, device="cpu").agent.device.type == "cpu"
+    assert StreamingTrainer(device="cpu").agent.device.type == "cpu"

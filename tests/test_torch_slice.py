@@ -176,7 +176,10 @@ for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp"
              "repro_torch.kernels.flash_attention",
              "repro_torch.kernels.ssd_scan", "repro_torch.kernels.moe_router",
              "repro_torch.models.lm", "repro_torch.serve.engine",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve", "repro_torch.rl",
+             "repro_torch.rl.batch", "repro_torch.rl.episodes",
+             "repro_torch.rl.trainer", "repro_torch.core.trainer",
+             "repro_torch.core.live"):
     assert name in names, name
 """
     env = dict(os.environ)
