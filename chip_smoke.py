@@ -83,11 +83,36 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
 18. stream train: ``StreamingTrainer(StreamingConfig())`` on the card for
     2 streams (cut from 8), then its greedy evaluation on ``flash-crowd``
     against FCFS; ``run_live`` on a 256-job Helios batch with one SLA user:
-    no ranking puts an SLA job behind a non-SLA job.
+    no ranking puts an SLA job behind a non-SLA job;
+19. fleet: the operator's path, ``run_fleet`` over a 10,000-job
+    ``fleet-skewed-flash`` at the federation bench's quick size (``jsq``,
+    ``pack``, FCFS, rescan 60 s), members stepped in parallel, each with
+    its own assisted ``RuntimePredictor`` on the card and the autoscaling
+    bench's ``target-util`` controller (whose forecast hold scores the
+    pending window through the predictor): completed jobs, windows, wall,
+    per member decisions, backfills, reservations, overruns and scale
+    events, the predictor kernel's launches per member (counted at each
+    member's ``_forward``, summing to the kernel's own count) and the share
+    of the wall in the predictors' ``_forward``; then the first 200
+    predictor calls recomputed by the plain version (atol 1e-5);
+20. fleet check: on a 600-job ``fleet-skewed-flash`` (seed 3) with
+    assisted predictors in every member and the greedy actor (seeded
+    ``PPOConfig()`` weights, deep-window scorer) in member 0, the card's
+    parallel run equals the card's serial run, which equals the CPU's
+    (``tests/test_predict.py``'s fleet signature); a shadow-predictor fleet
+    on the card equals the predictor-less fleet;
+21. control plane: a 2,000-job ``slo-lanes`` stream at the preemption
+    bench's quick size and controller (SLO deadlines and elastic gangs),
+    with an assisted predictor and the greedy actor on the card and the
+    full ``Observability`` bundle: deadline hit rate, lifecycle events,
+    both kernels' launches; the trace validates, ``obs.report.analyze``
+    reads it, the Prometheus text holds ``repro_prediction_mape`` and
+    ``repro_preemptions_total``; then a 1,000-job
+    ``fleet-fault-migration`` with ``QueueImbalanceMigration``.
 
 Then one JSON line describing all five kernels (times, launches, bounds;
-``launches_by_path`` gives the policy MLP's on each path), and as
-the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+``launches_by_path`` gives the policy and predictor MLPs' on each path),
+and as the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line.  It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
@@ -97,6 +122,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -194,18 +220,38 @@ def predict_bound(B: int, F: int, H1: int, H2: int, Q: int) -> tuple[float, str]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def signature(engine):
-    """The schedule signature of ``tests/test_predict.py``."""
-    jobs = tuple(sorted(
+def time_calls(obj, name: str, acc: list) -> None:
+    """Replace ``obj.name`` by a wrapper adding one call and its seconds
+    to ``acc`` ([calls, seconds])."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            acc[0] += 1
+            acc[1] += time.perf_counter() - t0
+    setattr(obj, name, wrapper)
+
+
+def job_times(jobs) -> tuple:
+    """Each completed job's id, submit, first start, finish and restarts,
+    sorted: the job part of ``tests/test_predict.py``'s signatures."""
+    return tuple(sorted(
         (j.job_id, round(j.submit_time, 6),
          round(j.first_start_time if j.first_start_time is not None else -1,
                6),
          round(j.finish_time if j.finish_time is not None else -1, 6),
          j.restarts)
-        for j in engine.completed))
-    return jobs, (engine.decisions, engine.milp_calls, engine.backfills,
-                  engine.restarts, engine.bf_reservations,
-                  engine.bf_overruns)
+        for j in jobs))
+
+
+def signature(engine):
+    """The schedule signature of ``tests/test_predict.py``."""
+    return job_times(engine.completed), (
+        engine.decisions, engine.milp_calls, engine.backfills,
+        engine.restarts, engine.bf_reservations, engine.bf_overruns)
 
 
 def stream(num_jobs: int, predictor, scenario: str = "mispredict-storm",
@@ -321,22 +367,9 @@ def predict_stream_phase(dev, num_jobs: int) -> dict:
                            out.clone()))
         return out
 
-    def timed(name):
-        fn = getattr(pred, name)
-        acc = spans.setdefault(name, [0, 0.0])
-
-        def wrapper(*args):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args)
-            finally:
-                acc[0] += 1
-                acc[1] += time.perf_counter() - t0
-        setattr(pred, name, wrapper)
-
     for name in ("predict_quantiles", "_rows", "_forward", "_device_params",
                  "on_submit", "on_finish"):
-        timed(name)
+        time_calls(pred, name, spans.setdefault(name, [0, 0.0]))
     timed_params = pred._device_params
 
     def counted_params():
@@ -1009,6 +1042,15 @@ STEP_FRACTION = 1e-4
 STREAMS = 2
 LIVE_JOBS = 256
 
+# ------------------------------------------------- control plane and fleet --
+# phase 19: the federation bench's quick size (benchmarks/bench_federation.py)
+FLEET_JOBS = 10000
+# phase 20: the fleet held to the CPU's; phase 21: the preemption bench's
+# quick size (benchmarks/bench_preemption.py), then a migrating fleet
+FLEET_CHECK_JOBS = 600
+CONTROL_JOBS = 2000
+MIGRATION_JOBS = 1000
+
 
 def tree_leaves(tree) -> list[tuple[str, object]]:
     """(name, tensor) of each leaf of an agent's ``params``-shaped tree."""
@@ -1495,6 +1537,309 @@ def stream_train_phase(dev) -> dict:
     return {"stream-train": train_launches, "live": live_launches}
 
 
+def fleet_signature(sr):
+    """``tests/test_predict.py``'s fleet signature: every completed job's
+    times and restarts, and per member the decisions, MILP calls,
+    backfills, reservations and overruns."""
+    return job_times(sr.result.jobs), tuple(
+        (e.decisions, e.milp_calls, e.backfills, e.bf_reservations,
+         e.bf_overruns) for e in sr.fed.engines)
+
+
+def fleet_phase(dev) -> dict:
+    """19. fleet: ``run_fleet`` as an operator runs it, on the card.
+    Returns the predictor kernel's {"launches", "max_abs_err"} and the
+    policy kernel's launches ("policy_mlp")."""
+    import numpy as np
+    import torch
+    from repro_torch.fed import run_fleet
+    from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels.ref import predict_mlp_ref
+    from repro_torch.predict import RuntimePredictor
+    from repro_torch.scale import TargetUtilizationAutoscaler, pools_from_spec
+
+    keys = ("w1", "b1", "w2", "b2", "w3", "b3")
+    # per member: [_forward calls, seconds]; [forecasts, seconds, launches]
+    forwards: list[list] = []
+    forecasts: list[list] = []
+    autoscalers: list = []
+    record: list = []
+    lock = threading.Lock()
+    real_predict_mlp = ops.predict_mlp
+
+    def tapped_predict_mlp(x, params):
+        """Keeps the inputs, weights and outputs of the first
+        CHECK_PREDICTS calls, from whichever member's thread."""
+        out = real_predict_mlp(x, params)
+        with lock:
+            if len(record) < CHECK_PREDICTS:
+                record.append((x.clone(), {k: params[k].clone()
+                                           for k in keys}, out.clone()))
+        return out
+
+    def predictor(i, spec):
+        # one predictor a member, never shared: each trains online from its
+        # own engine's completions
+        p = RuntimePredictor(assist=True, seed=i, device=dev)
+        check(p.device.type == "cuda", f"member {i}'s predictor on {p.device}")
+        forwards.append([0, 0.0])
+        time_calls(p, "_forward", forwards[-1])
+        return p
+
+    def autoscaler(i, spec):
+        # the autoscaling bench's target-util controller
+        a = TargetUtilizationAutoscaler(
+            pools_from_spec(spec, min_frac=0.25), util_low=0.6,
+            util_high=0.85, max_pending_for_down=4, cooldown_s=1800.0)
+        acc = [0, 0.0, 0]
+        forecast = a._forecast_gpu_hours
+
+        def counted_forecast(engine):
+            # controllers tick serially at the window edge, after every
+            # member's step: the launches in here are the forecast's own
+            t0, n0 = time.perf_counter(), qm.launches
+            try:
+                return forecast(engine)
+            finally:
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t0
+                acc[2] += qm.launches - n0
+        a._forecast_gpu_hours = counted_forecast
+        forecasts.append(acc)
+        autoscalers.append(a)
+        return a
+
+    ops.predict_mlp = tapped_predict_mlp
+    pm.launches = qm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        sr = run_fleet("fleet-skewed-flash", num_jobs=FLEET_JOBS, seed=0,
+                       router="jsq", allocator="pack", policy="fcfs",
+                       rescan_interval=60.0, parallel=True,
+                       predictor_factory=predictor,
+                       autoscaler_factory=autoscaler)
+        torch.cuda.synchronize()
+    finally:
+        ops.predict_mlp = real_predict_mlp
+    wall = time.perf_counter() - t0
+    launches, policy_launches = qm.launches, pm.launches
+    res = sr.result
+    check(len(res.jobs) == FLEET_JOBS,
+          f"fleet completed {len(res.jobs)} of {FLEET_JOBS} jobs")
+    per_member = [n for n, _ in forwards]
+    check(sum(per_member) == launches,
+          f"predict_mlp launches {launches} != the members' forwards "
+          f"{per_member} (sum {sum(per_member)})")
+    check(min(per_member) > 0, f"a member launched no predictor kernel: "
+          f"{per_member}")
+    errors = [e for eng in sr.fed.engines for h in eng.hooks
+              for e in getattr(h, "errors", [])]
+    check(not errors, f"hooks raised in the fleet: {errors[:3]}")
+    waits = np.array([j.wait_time for j in res.jobs])
+    fwd_s = sum(s for _, s in forwards)
+    print(f"fleet: fleet-skewed-flash {FLEET_JOBS} jobs seed 0, jsq, pack, "
+          f"fcfs, rescan 60 s, parallel members, assisted predictors and "
+          f"target-util autoscalers on every member: completed="
+          f"{len(res.jobs)} windows={sr.windows} wall_s={wall:.3f} "
+          f"routed={list(res.routed)} wait_p50_h={res.wait_p50 / 3600.0:.4f} "
+          f"wait_p99_h={res.wait_p99 / 3600.0:.4f} "
+          f"jct_p99_h={res.jct_p99 / 3600.0:.4f} "
+          f"utilization={res.utilization:.4f} fairness={res.fairness:.4f} "
+          f"(mean wait {float(waits.mean()) / 3600.0:.4f} h)")
+    for i, (eng, a) in enumerate(zip(sr.fed.engines, autoscalers)):
+        name = sr.fed.infos[i].name
+        print(f"fleet: member {i} {name}: decisions={eng.decisions} "
+              f"backfills={eng.backfills} bf_reservations="
+              f"{eng.bf_reservations} bf_overruns={eng.bf_overruns} "
+              f"scale_events={len(a.events)} {a.event_counts()} "
+              f"forecasts={forecasts[i][0]} (launching "
+              f"{forecasts[i][2]}) predict_mlp_launches="
+              f"{per_member[i]} forward_s={forwards[i][1]:.3f} "
+              f"mape={sr.fed.predictors[i].mape():.6f}")
+    print(f"fleet: predict_mlp launches {launches} (members "
+          f"{'+'.join(map(str, per_member))}), policy_mlp launches "
+          f"{policy_launches}; the predictors' _forward {fwd_s:.3f} s "
+          f"summed over members, {100.0 * fwd_s / wall:.1f}% of the wall; "
+          f"autoscaler forecasts {sum(f[0] for f in forecasts)} in "
+          f"{sum(f[1] for f in forecasts):.3f} s, launching "
+          f"{sum(f[2] for f in forecasts)}")
+
+    worst = 0.0
+    with torch.no_grad():
+        for x, params, out in record:
+            plain = predict_mlp_ref(x, *(params[k] for k in keys))
+            worst = max(worst, (out - plain).abs().max().item())
+    check(len(record) == min(CHECK_PREDICTS, launches),
+          f"recorded {len(record)} predictor calls")
+    check(worst <= ATOL, f"fleet predictor outputs vs plain: max abs err "
+          f"{worst:.3e}")
+    rows = [x.shape[0] for x, _, _ in record]
+    print(f"fleet check: the first {len(record)} predictor calls (B "
+          f"{min(rows)}-{max(rows)}, from every member's thread): "
+          f"max_abs_err={worst:.3e}")
+    return {"launches": launches, "max_abs_err": worst,
+            "policy_mlp": policy_launches}
+
+
+def fleet_check_phase(card) -> dict:
+    """20. fleet check: a small fleet with both kernels in its members, on
+    the card in parallel and serially and on the CPU.  Returns the card's
+    parallel run's launches {"policy_mlp", "predict_mlp"}."""
+    import torch
+    from repro_torch.core import PPOAgent, RLPrioritizer
+    from repro_torch.core.policies import make_policy
+    from repro_torch.core.prioritizer import PolicyPrioritizer
+    from repro_torch.fed import get_fleet_scenario, run_fleet
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels.batch_score import BucketedScorer
+    from repro_torch.predict import RuntimePredictor
+    from repro_torch.sched import wrap_tenancy
+
+    run = get_fleet_scenario("fleet-skewed-flash").build(FLEET_CHECK_JOBS, 3)
+
+    def fleet(device, parallel, predictors="assisted", actor=True):
+        # member 0 owns its agent and acts greedily (explore=False reads
+        # the weights and nothing else of the agent), so the member's
+        # worker thread shares no mutable state with the others
+        kind = torch.device(device).type
+        agent = PPOAgent(device=device) if actor else None
+        if agent is not None:
+            check(agent.device.type == kind, f"agent on {agent.device}")
+
+        def prioritizer(i):
+            base = RLPrioritizer(agent, explore=False,
+                                 deep_scorer=BucketedScorer(
+                                     agent.params["actor"])) \
+                if i == 0 and agent is not None \
+                else PolicyPrioritizer(make_policy("fcfs"))
+            return wrap_tenancy(base, run.sla_users, run.vc_quotas)
+
+        def predictor(i, spec):
+            p = RuntimePredictor(assist=predictors == "assisted", seed=i,
+                                 device=device)
+            check(p.device.type == kind,
+                  f"member {i}'s predictor on {p.device}")
+            return p
+        before = (pm.launches, qm.launches)
+        t0 = time.perf_counter()
+        sr = run_fleet(run, parallel=parallel, prioritizer_factory=prioritizer,
+                       predictor_factory=predictor if predictors else None)
+        if kind == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return sr, (pm.launches - before[0], qm.launches - before[1])
+
+    walls: list[float] = []
+    pm.launches = qm.launches = 0
+    par, used = fleet(card, True)
+    serial, _ = fleet(card, False)
+    cpu, _ = fleet("cpu", False)
+    got, want = fleet_signature(par), fleet_signature(serial)
+    check(got == want, f"fleet-skewed-flash {FLEET_CHECK_JOBS}: the card's "
+          f"parallel run {got[1]} != its serial run {want[1]}")
+    check(want == fleet_signature(cpu), f"fleet-skewed-flash "
+          f"{FLEET_CHECK_JOBS}: the card {want[1]} != the CPU "
+          f"{fleet_signature(cpu)[1]}")
+    check(min(used) > 0, f"fleet check launches on the card {used}")
+    check(sum(e[3] for e in got[1]) > 0, "fleet check: no reservation")
+    shadow, _ = fleet(card, True, predictors="shadow", actor=False)
+    none, _ = fleet(card, True, predictors=None, actor=False)
+    check(fleet_signature(shadow) == fleet_signature(none),
+          "fleet check: the shadow predictors on the card changed the fleet")
+    print(f"fleet check: fleet-skewed-flash {FLEET_CHECK_JOBS} jobs seed 3, "
+          f"greedy actor + deep scorer on member 0, assisted predictors on "
+          f"all: card parallel == card serial == CPU, per member (decisions, "
+          f"milp_calls, backfills, reservations, overruns) {got[1]}; "
+          f"launches in the parallel run policy_mlp={used[0]} "
+          f"predict_mlp={used[1]}; shadow predictors on the card == no "
+          f"predictor {fleet_signature(none)[1]}")
+    print(f"fleet check: wall_s card parallel={walls[0]:.3f} card serial="
+          f"{walls[1]:.3f} CPU serial={walls[2]:.3f} shadow={walls[3]:.3f} "
+          f"none={walls[4]:.3f}")
+    return {"policy_mlp": used[0], "predict_mlp": used[1]}
+
+
+def control_plane_phase(dev) -> dict:
+    """21. control plane: SLO lanes and elastic gangs with the predictor,
+    the actor and the observability bundle on the card; then a migrating
+    fleet.  Returns the stream's launches {"policy_mlp", "predict_mlp"}."""
+    import torch
+    from repro_torch.core import PPOAgent, RLPrioritizer
+    from repro_torch.fed import run_fleet
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels.batch_score import BucketedScorer
+    from repro_torch.lifecycle import (ElasticGangPolicy, PreemptionController,
+                                       QueueImbalanceMigration,
+                                       SloDeadlinePolicy)
+    from repro_torch.obs import Observability, validate_trace
+    from repro_torch.obs.report import analyze
+    from repro_torch.predict import RuntimePredictor
+    from repro_torch.sched import run_scenario
+
+    agent = PPOAgent(device=dev)
+    pred = RuntimePredictor(assist=True, seed=0, device=dev)
+    check(agent.device.type == "cuda" and pred.device.type == "cuda",
+          f"agent on {agent.device}, predictor on {pred.device}")
+    ctl = PreemptionController([SloDeadlinePolicy(), ElasticGangPolicy()])
+    obs = Observability(name="slo-lanes")
+    pri = RLPrioritizer(agent, explore=False,
+                        deep_scorer=BucketedScorer(agent.params["actor"]))
+    pm.launches = qm.launches = 0
+    t0 = time.perf_counter()
+    sr = run_scenario("slo-lanes", num_jobs=CONTROL_JOBS, seed=0,
+                      prioritizer=pri, allocator="pack", rescan_interval=60.0,
+                      sample_interval=3600.0, preemption=ctl, obs=obs,
+                      predictor=pred)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = {"policy_mlp": pm.launches, "predict_mlp": qm.launches}
+    jobs = sr.batch.jobs
+    check(len(jobs) == CONTROL_JOBS,
+          f"slo-lanes completed {len(jobs)} of {CONTROL_JOBS}")
+    check(min(used.values()) > 0, f"slo-lanes launches {used}")
+    counts = ctl.event_counts()
+    check(counts.get("preempt", 0) > 0, f"no preemption: {counts}")
+    dl = [j for j in jobs if j.has_deadline]
+    hit = sum(1 for j in dl if j.finish_time <= j.deadline) / max(len(dl), 1)
+    doc = obs.trace_document()
+    problems = validate_trace(doc)
+    check(problems == [], f"the trace does not validate: {problems[:3]}")
+    model = analyze(doc)
+    check(sum(model["path_counts"].values()) == sr.engine.decisions,
+          f"analyze counts {sum(model['path_counts'].values())} decisions, "
+          f"the engine {sr.engine.decisions}")
+    prom = obs.prometheus()
+    for name in ("repro_prediction_mape", "repro_preemptions_total"):
+        check(name in prom, f"{name} missing from the Prometheus text")
+    print(f"control plane: slo-lanes {CONTROL_JOBS} jobs seed 0, pack, "
+          f"rescan 60 s, slo+elastic controller, greedy actor + deep scorer "
+          f"+ assisted predictor, observability on: wall_s={wall:.3f} "
+          f"windows={sr.windows} deadline_hit_rate={hit:.4f} "
+          f"({len(dl)} deadline jobs) events {counts} "
+          f"preemptions={sr.engine.preemptions} decisions="
+          f"{sr.engine.decisions} launches policy_mlp={used['policy_mlp']} "
+          f"predict_mlp={used['predict_mlp']}; trace {len(doc['traceEvents'])}"
+          f" events valid, analyze: {len(model['jobs'])} job tracks, "
+          f"{model['blocked_windows']} blocked windows; Prometheus "
+          f"{len(prom.splitlines())} lines with repro_prediction_mape and "
+          f"repro_preemptions_total")
+
+    mig = QueueImbalanceMigration(min_advantage=2, max_moves_per_window=8)
+    t0 = time.perf_counter()
+    fr = run_fleet("fleet-fault-migration", num_jobs=MIGRATION_JOBS, seed=1,
+                   router="jsq", allocator="pack", rescan_interval=300.0,
+                   migration=mig)
+    mig_wall = time.perf_counter() - t0
+    check(len(fr.result.jobs) == MIGRATION_JOBS,
+          f"fleet-fault-migration completed {len(fr.result.jobs)}")
+    check(fr.fed.migrations, "fleet-fault-migration: no migration")
+    print(f"control plane: fleet-fault-migration {MIGRATION_JOBS} jobs seed "
+          f"1, jsq, pack, rescan 300 s, QueueImbalanceMigration(2, 8): "
+          f"migrations={len(fr.fed.migrations)} routed="
+          f"{list(fr.result.routed)} wall_s={mig_wall:.3f}")
+    return used
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1770,6 +2115,21 @@ def main() -> int:
     # -------------------------------------------------- 18. stream train --
     rl_launches = stream_train_phase(dev)
 
+    # ---------------------------------------------------------- 19. fleet --
+    t0 = time.perf_counter()
+    fleet = fleet_phase(dev)
+    print(f"fleet: phase 19 took {time.perf_counter() - t0:.3f} s")
+
+    # ---------------------------------------------------- 20. fleet check --
+    t0 = time.perf_counter()
+    fleet_check = fleet_check_phase(dev)
+    print(f"fleet check: phase 20 took {time.perf_counter() - t0:.3f} s")
+
+    # -------------------------------------------------- 21. control plane --
+    t0 = time.perf_counter()
+    control = control_plane_phase(dev)
+    print(f"control plane: phase 21 took {time.perf_counter() - t0:.3f} s")
+
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
     q_ms, q_plain_ms, q_b_ms, q_b_by = q_timings[MAIN_B]
@@ -1781,7 +2141,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/policy_mlp.py:35",
         "launches": launches,
         "launches_by_path": {"philly-4096": launches,
-                             "train": trained["launches"], **rl_launches},
+                             "train": trained["launches"], **rl_launches,
+                             "fleet": fleet["policy_mlp"],
+                             "fleet-check": fleet_check["policy_mlp"],
+                             "control-plane": control["policy_mlp"]},
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1794,7 +2157,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/predict_mlp.cu",
         "replaces": "src/repro/kernels/predict_mlp.py:37",
         "launches": q["launches"],
-        "max_abs_err": max(q_err, q["max_abs_err"]),
+        "launches_by_path": {"mispredict-storm-10000": q["launches"],
+                             "fleet": fleet["launches"],
+                             "fleet-check": fleet_check["predict_mlp"],
+                             "control-plane": control["predict_mlp"]},
+        "max_abs_err": max(q_err, q["max_abs_err"], fleet["max_abs_err"]),
         "ms": q_ms,
         "plain_ms": q_plain_ms,
         "bound_ms": q_b_ms,

@@ -2,9 +2,11 @@
 
 Mirrors the ``repro`` package module for module.  Host logic (trace
 generation, cluster state, features, MILP placement, the event loop, the
-streaming service) is numpy/scipy carried over unchanged; the device side is
-the PPO actor/critic and the runtime predictor's batched forward in torch,
-whose MLPs run through hand-written CUDA kernels
+streaming service, and the control plane: preemption and migration
+(``lifecycle``), autoscaling (``scale``), federation (``fed``) and
+observability (``obs``)) is numpy/scipy carried over unchanged; the device
+side is the PPO actor/critic and the runtime predictor's batched forward in
+torch, whose MLPs run through hand-written CUDA kernels
 (``repro_torch.kernels.policy_mlp``, ``predict_mlp``) on the GPU.  The LM
 workload stack serves (``configs``, ``models``, ``serve``,
 ``launch.serve``: prefill and greedy decode for every registered config)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from pathlib import Path
 
 import torch
@@ -25,6 +26,9 @@ from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
 #: kernel launches made by ``flash_attention`` since the process started (or
 #: since a caller last reset it to 0)
 launches = 0
+#: held around each increment, so that launches from several host threads
+#: at once (a federation stepping its members in parallel) all count
+_count_lock = threading.Lock()
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the bf16 kernel is instantiated for (64: stablelm, granite,
@@ -105,5 +109,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -17,6 +17,7 @@ chosen by ``ops.moe_router``).
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -26,6 +27,9 @@ from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
 #: calls of ``moe_router`` that launched its kernels since the process
 #: started (or since a caller last reset it to 0)
 launches = 0
+#: held around each increment, so that launches from several host threads
+#: at once (a federation stepping its members in parallel) all count
+_count_lock = threading.Lock()
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel library's route numbers
@@ -124,5 +128,6 @@ def run(x: torch.Tensor, router_w: torch.Tensor, k: int,
                                 dev.index, stream)
     if err != 0:
         raise RuntimeError(f"moe_router kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return weights, idx

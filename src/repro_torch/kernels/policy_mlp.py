@@ -12,6 +12,7 @@ chosen by ``ops.policy_mlp``).
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -21,6 +22,9 @@ from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
 #: kernel launches made by ``policy_mlp`` since the process started (or since
 #: a caller last reset it to 0)
 launches = 0
+#: held around each increment, so that launches from several host threads
+#: at once (a federation stepping its members in parallel) all count
+_count_lock = threading.Lock()
 
 _limits: tuple[int, int, int] = (0, 0, 0)
 
@@ -88,5 +92,6 @@ def policy_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         out.data_ptr(), Q, F, H1, H2, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"policy_mlp kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

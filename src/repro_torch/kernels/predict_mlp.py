@@ -13,6 +13,7 @@ chosen by ``ops.predict_mlp``).
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -22,6 +23,9 @@ from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
 #: kernel launches made by ``predict_mlp`` since the process started (or
 #: since a caller last reset it to 0)
 launches = 0
+#: held around each increment, so that launches from several host threads
+#: at once (a federation stepping its members in parallel) all count
+_count_lock = threading.Lock()
 
 _limits: tuple[int, int, int, int] = (0, 0, 0, 0)
 
@@ -90,5 +94,6 @@ def predict_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         B, F, H1, H2, Q, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"predict_mlp kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

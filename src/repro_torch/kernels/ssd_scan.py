@@ -15,6 +15,7 @@ chosen by ``ops.ssd_scan``).
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -24,6 +25,9 @@ from repro_torch.kernels.nvcc_build import CudaLibrary, check_arg
 #: calls of ``ssd_scan`` that launched its kernels since the process started
 #: (or since a caller last reset it to 0)
 launches = 0
+#: held around each increment, so that launches from several host threads
+#: at once (a federation stepping its members in parallel) all count
+_count_lock = threading.Lock()
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _limits: tuple[int, int, int] = (0, 0, 0)
@@ -113,5 +117,6 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         DTYPES[xh.dtype], dev.index, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return y, state

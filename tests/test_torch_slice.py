@@ -179,7 +179,12 @@ for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp"
              "repro_torch.launch.serve", "repro_torch.rl",
              "repro_torch.rl.batch", "repro_torch.rl.episodes",
              "repro_torch.rl.trainer", "repro_torch.core.trainer",
-             "repro_torch.core.live"):
+             "repro_torch.core.live", "repro_torch.lifecycle.preemption",
+             "repro_torch.lifecycle.migration", "repro_torch.scale.autoscaler",
+             "repro_torch.fed.federation", "repro_torch.fed.router",
+             "repro_torch.fed.scenarios", "repro_torch.obs.metrics",
+             "repro_torch.obs.tracer", "repro_torch.obs.audit",
+             "repro_torch.obs.report"):
     assert name in names, name
 """
     env = dict(os.environ)
