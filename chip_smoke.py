@@ -108,12 +108,36 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     both kernels' launches; the trace validates, ``obs.report.analyze``
     reads it, the Prometheus text holds ``repro_prediction_mape`` and
     ``repro_preemptions_total``; then a 1,000-job
-    ``fleet-fault-migration`` with ``QueueImbalanceMigration``.
+    ``fleet-fault-migration`` with ``QueueImbalanceMigration``;
+22. LM train: ``launch.train.train_loop`` on ``granite-moe-1b-a400m`` at
+    every published width and all 24 layers (1.335 B parameters, bf16,
+    f32 Adam moments), the plain path with full remat and the
+    cross-entropy in 4 chunks, at train_4k's 4,096-token sequences with the
+    global batch cut from 256 to 4: run A trains 12 steps; run B, the same
+    run with checkpoints every 4 steps, is killed when step 9 asks for its
+    batch; run C restarts on B's directory and trains steps 9-12.  Prints
+    the losses and gnorms, step ms p50 / p99 (host clock, each step ending
+    in its loss read), tokens/s, peak memory, the step's analytic bound
+    (``launch.roofline`` at one chip) and MFU against 989 TFLOP/s, the
+    checkpoint codec's rates, and a profile of one more step (device busy
+    ms, idle share, top kernels); checks every loss and gnorm finite, A's
+    last loss below its first, B's step-8 checkpoint restored onto the card
+    equal to B's state bit for bit (params, moments, step), C resumed at 8
+    and ran 4 steps with A's losses within ``RESUME_RTOL``, and no kernel
+    launched by training;
+23. LM train check: the smoke config in f32, one train step (microbatches
+    1 and 2), its loss, gradients, gnorm and updated parameters on the card
+    against the CPU's; then phase 22's trained weights served (4 prompts of
+    512 tokens from the training stream, 16 new tokens) through the kernel
+    path, counting flash-attention and router launches, and again through
+    the plain path at phase 15's tolerances.
 
 Then one JSON line describing all five kernels (times, launches, bounds;
-``launches_by_path`` gives the policy and predictor MLPs' on each path),
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before that line.  It imports nothing of JAX or of the ``repro`` package.
+``launches_by_path`` gives each kernel's launches on each path it runs
+on), the run's time on the line before the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before that line.  It imports nothing of JAX or of the ``repro``
+package.
 """
 from __future__ import annotations
 
@@ -128,6 +152,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SRC = ROOT / "src"
 
 ATOL = 1e-5
@@ -883,6 +908,72 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
               mr.launches - n0)
 
 
+def plain_path_check(cfg, params, prompts, new_tokens, done, rec, max_len,
+                     dev, label) -> None:
+    """The first batch of ``prompts`` again through the plain path
+    (``ModelImpl(attn="xla", ssd="xla", moe="xla")``) on the card, held to
+    the kernel path's run (``done``, its tapped logits ``rec``): prefill
+    logits within PREFILL_TOL, each decode step's within DECODE_TOL up to
+    each row's first differing token, the difference's RMS within
+    REL_RMS_TOL of the logits' RMS; all logits finite."""
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import ModelImpl
+    from repro_torch.serve import Request, ServeEngine
+
+    xla = build_model(cfg, impl=ModelImpl(attn="xla", ssd="xla", moe="xla"),
+                      device=dev)
+    x_engine = ServeEngine(xla, params, batch_size=LM_BATCH, max_len=max_len,
+                           device=dev)
+    x_rec = tap_engine(x_engine, new_tokens)
+    x_done = x_engine.run([Request(req_id=i, prompt=p,
+                                   max_new_tokens=new_tokens)
+                           for i, p in enumerate(prompts[:LM_BATCH])])
+    check(x_rec["nonfinite"] == 0, f"{x_rec['nonfinite']} non-finite logits "
+          "on the plain path")
+    V = cfg.vocab_size
+    k_logits, x_logits = rec["logits"], x_rec["logits"]
+
+    def compare(kl, xl, tol, what):
+        """max |kl - xl| <= tol + tol |xl| and RMS(kl - xl) <= REL_RMS_TOL
+        RMS(xl); returns (max abs diff, relative RMS)."""
+        diff = (kl - xl).abs()
+        bad = int((diff > tol + tol * xl.abs()).sum())
+        rel = float((kl - xl).pow(2).mean().sqrt() / xl.pow(2).mean().sqrt())
+        check(bad == 0 and rel <= REL_RMS_TOL,
+              f"{label}: {what}: kernel vs plain path, {bad} logits outside "
+              f"{tol}, max abs diff {float(diff.max()):.4f}, relative RMS "
+              f"{rel:.4f}")
+        return float(diff.max()), rel
+
+    pre_err, pre_rel = compare(k_logits[0][:, :V], x_logits[0][:, :V],
+                               PREFILL_TOL, "prefill logits")
+    scale = float(x_logits[0][:, :V].pow(2).mean().sqrt())
+    worst, worst_rel, agree, notes = 0.0, 0.0, 0, []
+    for i in range(LM_BATCH):
+        a, b = done[i].output, x_done[i].output
+        for s in range(1, new_tokens):      # step s is fed token s - 1
+            if a[s - 1] != b[s - 1]:
+                break
+            err, rel = compare(k_logits[s][i, :V], x_logits[s][i, :V],
+                               DECODE_TOL, f"row {i} decode step {s}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        for s in range(new_tokens):
+            if a[s] != b[s]:
+                kl = k_logits[s][i, :V]
+                notes.append(f"row {i} token {s}: {a[s]} vs {b[s]}, kernel-path "
+                             f"logit gap {float(kl[a[s]] - kl[b[s]]):.5f}")
+                break
+            agree += 1
+    print(f"{label}: first batch through the plain path on the card: "
+          f"prefill logits max_abs_diff={pre_err:.5f} relative_rms={pre_rel:.5f} "
+          f"(logits RMS {scale:.4f}); decode logits up to each row's first "
+          f"differing token max_abs_diff={worst:.5f} relative_rms="
+          f"{worst_rel:.5f} (tolerances {PREFILL_TOL} / {DECODE_TOL} abs+rel, "
+          f"{REL_RMS_TOL} relative RMS); greedy tokens agree on {agree} of "
+          f"{LM_BATCH * new_tokens} up to each row's first near-tie: "
+          f"{notes or 'none'}; all logits finite")
+
+
 def lm_serve_phase(dev) -> dict:
     """Phases 14 and 15, the slice's main path and its check.  Returns the
     launches of each LM kernel in the served run."""
@@ -894,7 +985,6 @@ def lm_serve_phase(dev) -> dict:
     from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import build_model
-    from repro_torch.models.lm import ModelImpl
     from repro_torch.serve import Request, ServeEngine
 
     cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
@@ -960,56 +1050,8 @@ def lm_serve_phase(dev) -> dict:
     profile_where_time_goes(model, params, engine, prompts)
 
     # -------------------------------------------------- 15. LM check --
-    xla = build_model(cfg, impl=ModelImpl(attn="xla", ssd="xla", moe="xla"),
-                      device=dev)
-    x_engine = ServeEngine(xla, params, batch_size=LM_BATCH, max_len=max_len,
-                           device=dev)
-    x_rec = tap_engine(x_engine, LM_NEW)
-    x_done = x_engine.run([Request(req_id=i, prompt=p, max_new_tokens=LM_NEW)
-                           for i, p in enumerate(prompts[:LM_BATCH])])
-    check(x_rec["nonfinite"] == 0, f"{x_rec['nonfinite']} non-finite logits "
-          "on the plain path")
-    V = cfg.vocab_size
-    k_logits, x_logits = rec["logits"], x_rec["logits"]
-
-    def compare(kl, xl, tol, what):
-        """max |kl - xl| <= tol + tol |xl| and RMS(kl - xl) <= REL_RMS_TOL
-        RMS(xl); returns (max abs diff, relative RMS)."""
-        diff = (kl - xl).abs()
-        bad = int((diff > tol + tol * xl.abs()).sum())
-        rel = float((kl - xl).pow(2).mean().sqrt() / xl.pow(2).mean().sqrt())
-        check(bad == 0 and rel <= REL_RMS_TOL,
-              f"{what}: kernel vs plain path, {bad} logits outside {tol}, "
-              f"max abs diff {float(diff.max()):.4f}, relative RMS {rel:.4f}")
-        return float(diff.max()), rel
-
-    pre_err, pre_rel = compare(k_logits[0][:, :V], x_logits[0][:, :V],
-                               PREFILL_TOL, "prefill logits")
-    scale = float(x_logits[0][:, :V].pow(2).mean().sqrt())
-    worst, worst_rel, agree, notes = 0.0, 0.0, 0, []
-    for i in range(LM_BATCH):
-        a, b = done[i].output, x_done[i].output
-        for s in range(1, LM_NEW):      # step s is fed token s - 1
-            if a[s - 1] != b[s - 1]:
-                break
-            err, rel = compare(k_logits[s][i, :V], x_logits[s][i, :V],
-                               DECODE_TOL, f"row {i} decode step {s}")
-            worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        for s in range(LM_NEW):
-            if a[s] != b[s]:
-                kl = k_logits[s][i, :V]
-                notes.append(f"row {i} token {s}: {a[s]} vs {b[s]}, kernel-path "
-                             f"logit gap {float(kl[a[s]] - kl[b[s]]):.5f}")
-                break
-            agree += 1
-    print(f"lm check: first batch through the plain path on the card: "
-          f"prefill logits max_abs_diff={pre_err:.5f} relative_rms={pre_rel:.5f} "
-          f"(logits RMS {scale:.4f}); decode logits up to each row's first "
-          f"differing token max_abs_diff={worst:.5f} relative_rms="
-          f"{worst_rel:.5f} (tolerances {PREFILL_TOL} / {DECODE_TOL} abs+rel, "
-          f"{REL_RMS_TOL} relative RMS); greedy tokens agree on {agree} of "
-          f"{LM_BATCH * LM_NEW} up to each row's first near-tie: "
-          f"{notes or 'none'}; all logits finite")
+    plain_path_check(cfg, params, prompts, LM_NEW, done, rec, max_len, dev,
+                     "lm check")
     return launches
 
 
@@ -1840,6 +1882,526 @@ def control_plane_phase(dev) -> dict:
     return used
 
 
+# ------------------------------------------------------ LM training slice --
+# phase 22: granite-moe-1b-a400m at every published width and all 24 layers
+# (the config the reference's own train_loop test trains), bf16 params, f32
+# Adam moments, the plain path with full remat, at train_4k's 4,096-token
+# sequences with the global batch cut from 256 to 4
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_STEPS = 12
+TRAIN_LR = 3e-4                  # train_loop's default
+PREEMPT_AT = 8                   # run B is killed when step 9 asks for data
+CKPT_EVERY = 4
+LOSS_CHUNK = 1024                # 4 chunks of (4, 1024, 49,408) f32 logits
+# Run C restores B's step-8 checkpoint (bit for bit, checked) and trains on
+# A's card, data and schedule; torch.use_deterministic_algorithms stays off
+# (the path's scatter-adds are index_put_(accumulate=True), sort-based on
+# CUDA, its GEMMs cuBLAS's), so C's losses are held to A's steps 9-12
+# within RESUME_RTOL of A's: one bf16 ulp of a weight is 2^-8 of it, and a
+# flipped rounding in a few weights moves a ~10 loss far less than 1e-3.
+RESUME_RTOL = 1e-3
+# phase 23: the smoke config in f32, one train step on the card against the
+# CPU (TF32 off on both: IEEE f32 in other orders of sums): the loss within
+# 1e-5 (~20 ulps of a ~6.3 loss); each gradient leaf within 2e-4 of its
+# largest CPU entry (moving every weight by one ulp moves the CPU's own
+# gradients by 1.5e-4 of that, tests/test_torch_lm_train.py); after AdamW
+# every parameter within 2 lr and all but a 5e-3 fraction within 1e-6
+# (Adam's first step moves an entry by lr * g / (|g| + eps), so where a
+# gradient is within a few eps of zero its rounding moves the step by up
+# to lr: 9.7e-4 of the entries on the card)
+TRAIN_CHECK_SEQ = 64
+TRAIN_CHECK_LOSS_TOL = 1e-5
+TRAIN_CHECK_GRAD_RTOL = 2e-4
+TRAIN_CHECK_STEP_ATOL = 1e-6
+TRAIN_CHECK_FRACTION = 5e-3
+# then the trained full-width weights served: 4 prompts of 512 tokens from
+# the training stream, 16 new tokens, all 24 layers through the kernel
+# path.  The seeded model (the reference's init rule) is chaotic in depth:
+# on the card, moving layer 0's wq by one bf16 ulp moves the plain path's
+# own prefill logits by 0.07 of their RMS at 2 layers, 0.45 at 3 and 1.29
+# at 24.  So the paths are held layer by layer on the plain path's input,
+# each layer's update within LAYER_RTOL of its RMS (~2.5 bf16 ulps;
+# 0.0008-0.0019 over the 24 seeded layers), and end to end on the trained
+# model cut to its first SERVE_CHECK_LAYERS layers at phase 15's
+# tolerances, as phase 15 cuts its model
+SERVE_PROMPT = 512
+SERVE_NEW = 16
+LAYER_RTOL = 1e-2
+SERVE_CHECK_LAYERS = 2
+
+
+class Preempted(Exception):
+    """Raised into ``train_loop`` to stop it as a killed job."""
+
+
+def run_preempted(train_mod, at: int, **kwargs):
+    """``train_mod.train_loop(**kwargs)`` killed when step ``at`` asks for
+    its batch (every checkpoint up to step ``at`` written: ``train_loop``
+    waits for its writer on the way out).  Returns the tree it handed to its
+    checkpoint manager at step ``at``: the state it held on the card when
+    it died, no step having run since."""
+    real_ds, real_mgr = train_mod.SyntheticLMDataset, train_mod.CheckpointManager
+    held = {}
+
+    class Killed(real_ds):
+        def batch_at(self, step):
+            if step == at:
+                raise Preempted(step)
+            return super().batch_at(step)
+
+    class Holding(real_mgr):
+        def maybe_save(self, step, tree):
+            if step == at:
+                held["tree"] = tree
+            return super().maybe_save(step, tree)
+
+    train_mod.SyntheticLMDataset, train_mod.CheckpointManager = Killed, Holding
+    try:
+        train_mod.train_loop(**kwargs)
+    except Preempted:
+        pass
+    else:
+        check(False, f"the run was not preempted at step {at}")
+    finally:
+        train_mod.SyntheticLMDataset, train_mod.CheckpointManager = \
+            real_ds, real_mgr
+    check("tree" in held, f"no checkpoint was taken at step {at}")
+    return held["tree"]
+
+
+def run_restart(train_mod, held, **kwargs):
+    """``train_mod.train_loop(**kwargs)`` restarting from its checkpoint
+    directory, with the tree its manager restores compared, before any
+    step runs, with ``held`` (the killed run's state) leaf by leaf.
+    Returns (the run's result, {step, leaves, same, bytes, s})."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves as lm_leaves
+
+    real_mgr = train_mod.CheckpointManager
+    info = {}
+
+    class Checked(real_mgr):
+        def restore(self, target_tree, device=None):
+            t0 = time.perf_counter()
+            tree, step = super().restore(target_tree, device)
+            torch.cuda.synchronize()
+            info.update(step=step, s=time.perf_counter() - t0, leaves=0,
+                        same=0, bytes=0)
+            for (_, a), (_, b) in zip(lm_leaves(tree), lm_leaves(held)):
+                info["leaves"] += 1
+                info["same"] += bool(a.dtype == b.dtype and torch.equal(a, b))
+                info["bytes"] += a.numel() * a.element_size()
+            return tree, step
+
+    train_mod.CheckpointManager = Checked
+    try:
+        out = train_mod.train_loop(**kwargs)
+    finally:
+        train_mod.CheckpointManager = real_mgr
+    check("step" in info, "the restart restored no checkpoint")
+    return out, info
+
+
+def profile_train_step(step_fn, params, opt_state, batch) -> None:
+    """Device busy ms, idle share and the top kernels of one train step
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step_fn(params, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    total = sum(t for t, _, _ in rows)
+    if total <= 0:
+        print("lm train profile: the profiler saw no device time "
+              "(not measured)")
+        return
+    gemm = sum(t for t, key, _ in rows
+               if any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
+                                                 "nvjet", "gemv")))
+    print(f"lm train profile: one step: wall_ms={wall * 1e3:.3f} "
+          f"device_busy_ms={total / 1e3:.3f} idle_share="
+          f"{max(0.0, 1 - total / 1e3 / (wall * 1e3)):.4f} device events "
+          f"{sum(n for _, _, n in rows)} gemm_ms={gemm / 1e3:.3f}"
+          f"({100 * gemm / total:.1f}%)")
+    for t, key, n in rows[:10]:
+        print(f"lm train profile:   {t / 1e3:9.3f} ms {100 * t / total:5.1f}% "
+              f"x{n:<6d} {key[:90]}")
+
+
+def zlib_speeds(t, nbytes: int = 32 << 20) -> str:
+    """One host core's zlib rates at levels 0 and 1 (compress, ratio,
+    inflate) over the first ``nbytes`` of tensor ``t``."""
+    import zlib
+    raw = t.detach().reshape(-1)[:nbytes // t.element_size()].cpu().numpy().tobytes()
+    parts = []
+    for level in (0, 1):
+        t0 = time.perf_counter()
+        blob = zlib.compress(raw, level)
+        t1 = time.perf_counter()
+        zlib.decompress(blob)
+        t2 = time.perf_counter()
+        parts.append(f"level {level} {len(raw) / (t1 - t0) / 1e6:.1f} MB/s "
+                     f"ratio {len(blob) / len(raw):.4f} inflate "
+                     f"{len(raw) / (t2 - t1) / 1e6:.1f} MB/s")
+    return (f"checkpoint codec on one host core, {len(raw) >> 20} MiB of "
+            f"the embedding's f32 first moment at step {PREEMPT_AT}: "
+            + "; ".join(parts))
+
+
+def lm_train_phase(dev) -> dict:
+    """22. LM train: ``train_loop`` at full width on the card: run A
+    uninterrupted, run B killed after step 8 (checkpoints every 4), run C
+    restarted from B's directory.  Returns A's trained params."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import mesh, roofline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.lm import LM, ModelImpl
+    from repro_torch.train import OptConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    props = torch.cuda.get_device_properties(0)
+    print(f"lm train: {props} beside the port's H100 SXM constants "
+          f"PEAK_FLOPS_BF16={mesh.PEAK_FLOPS_BF16:.4g} "
+          f"HBM_BW={mesh.HBM_BW:.4g} NVLINK_BW={mesh.NVLINK_BW:.4g}")
+    run = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               lr=TRAIN_LR, loss_chunk=LOSS_CHUNK, log_every=4, device=dev)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    pm.launches = qm.launches = fa.launches = ss.launches = mr.launches = 0
+
+    # run A: 12 steps uninterrupted
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_a = train_mod.train_loop(TRAIN_ARCH, **run)
+    wall_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = out_a.pop("params")
+    del out_a["opt_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, gnorms = out_a["losses"], out_a["gnorms"]
+    check(len(losses) == TRAIN_STEPS and out_a["start_step"] == 0,
+          f"run A ran {len(losses)} steps from {out_a['start_step']}")
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()),
+          f"run A: non-finite loss or gnorm: {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"run A: the last loss {losses[-1]} is not below the first {losses[0]}")
+    step_ms = np.asarray(out_a["step_s"]) * 1e3
+    steady = step_ms[1:]
+    p50 = float(np.percentile(steady, 50))
+    model = LM(cfg, ModelImpl(attn="xla", ssd="xla", moe="xla",
+                              loss_chunk=LOSS_CHUNK), device=dev)
+    shape = ShapeConfig("train_4k_b4", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cost = roofline.analytic_cost(cfg, shape, chips=1, model=model)
+    terms = roofline.roofline_terms(cost["flops_per_chip"],
+                                    cost["hbm_bytes_per_chip"], 0.0)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    mflops = roofline.model_flops(cfg, shape, model.active_param_count())
+    print(f"lm train: {TRAIN_ARCH} at full width ({cfg.num_layers} layers, "
+          f"d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}), "
+          f"{model.param_count() / 1e9:.4f} B params "
+          f"({model.active_param_count() / 1e9:.4f} B active), {cfg.dtype} "
+          f"params + f32 moments, plain path, remat full, loss_chunk "
+          f"{LOSS_CHUNK}; seq {TRAIN_SEQ}, batch {TRAIN_BATCH} (train_4k's "
+          f"256 cut to {TRAIN_BATCH}), {TRAIN_STEPS} steps, lr 3e-4")
+    print(f"lm train: run A losses {[round(x, 5) for x in losses]} first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f} finite; gnorms "
+          f"{[round(x, 4) for x in gnorms]}")
+    print(f"lm train: run A wall_s={wall_a:.3f} step_ms first={step_ms[0]:.1f} "
+          f"p50={p50:.1f} p99={np.percentile(steady, 99):.1f} (steps 2-"
+          f"{TRAIN_STEPS}, host clock, each ending in the loss read) "
+          f"tokens_per_s={TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.1f} "
+          f"max_memory_allocated_GiB={peak / 2**30:.3f}")
+    print(f"lm train: analytic step (launch.roofline, chips 1): "
+          f"flops={cost['flops_global']:.4g} hbm_bytes="
+          f"{cost['hbm_bytes_per_chip']:.4g} compute_ms="
+          f"{terms['compute_s'] * 1e3:.3f} memory_ms="
+          f"{terms['memory_s'] * 1e3:.3f} bound_ms={bound_ms:.3f} "
+          f"({terms['dominant']}); step p50 / bound = {p50 / bound_ms:.2f}; "
+          f"model_flops={mflops:.4g} MFU={mflops / (p50 / 1e3 * 989e12):.4f} "
+          "(against 989 TFLOP/s)")
+
+    # run B: the same run killed after step 8, checkpoints every 4
+    t0 = time.perf_counter()
+    held = run_preempted(train_mod, PREEMPT_AT, arch=TRAIN_ARCH,
+                         ckpt_dir=str(ckpt_dir), ckpt_interval=CKPT_EVERY,
+                         **run)
+    wall_b = time.perf_counter() - t0
+    on_disk = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    kept = sorted(d.name for d in ckpt_dir.iterdir())
+    codec_line = zlib_speeds(held["opt"]["m"]["embed"]["table"])
+    print(f"lm train: {codec_line}")
+    print(f"lm train: run B killed after step {PREEMPT_AT} in "
+          f"{wall_b:.3f} s (2 checkpoints written: {kept}, "
+          f"{on_disk / 1e9:.3f} GB on disk, zlib level "
+          f"{ckpt_mod.ZLIB_LEVEL})")
+
+    # run C: the restart, its restored state held to B's
+    t0 = time.perf_counter()
+    out_c, restore = run_restart(train_mod, held, arch=TRAIN_ARCH,
+                                 ckpt_dir=str(ckpt_dir),
+                                 ckpt_interval=CKPT_EVERY, **run)
+    wall_c = time.perf_counter() - t0
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(restore["step"] == PREEMPT_AT and restore["same"] == restore["leaves"],
+          f"restore of step {restore['step']}: {restore['same']} of "
+          f"{restore['leaves']} leaves bit-equal to B's state")
+    print(f"lm train: run C restored step {restore['step']} onto the card "
+          f"in {restore['s']:.3f} s ({restore['bytes'] / 1e9:.3f} GB): "
+          f"params, m, v and step equal B's state at step {PREEMPT_AT} bit "
+          f"for bit ({restore['same']} of {restore['leaves']} leaves)")
+    c_losses = out_c["losses"]
+    check(out_c["start_step"] == PREEMPT_AT
+          and len(c_losses) == TRAIN_STEPS - PREEMPT_AT,
+          f"run C resumed at {out_c['start_step']} and ran {len(c_losses)} "
+          "steps")
+    check(bool(np.isfinite(c_losses).all() and np.isfinite(out_c["gnorms"]).all()),
+          f"run C: non-finite loss or gnorm {c_losses} {out_c['gnorms']}")
+    diffs = [abs(c - a) for c, a in zip(c_losses, losses[PREEMPT_AT:])]
+    check(all(d <= RESUME_RTOL * abs(a)
+              for d, a in zip(diffs, losses[PREEMPT_AT:])),
+          f"run C's losses {c_losses} vs A's {losses[PREEMPT_AT:]}")
+    print(f"lm train: run C resumed at step {out_c['start_step']} and ran "
+          f"{len(c_losses)} steps in {wall_c:.3f} s: losses "
+          f"{[round(x, 5) for x in c_losses]} vs A's "
+          f"{[round(x, 5) for x in losses[PREEMPT_AT:]]}: max abs diff "
+          f"{max(diffs):.3e} ({'bit-identical' if max(diffs) == 0 else 'not bit-identical'}"
+          f"; tolerance {RESUME_RTOL} relative; deterministic algorithms off)")
+    launched = {"policy_mlp": pm.launches, "predict_mlp": qm.launches,
+                "flash_attention": fa.launches, "ssd_scan": ss.launches,
+                "moe_router": mr.launches}
+    check(not any(launched.values()),
+          f"the training path launched a kernel: {launched}")
+    print(f"lm train: the three runs launched none of the five kernels "
+          f"{launched} (training runs the plain path, as the reference)")
+
+    # one profiled step on C's final state
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(TRAIN_STEPS).items()}
+    step_fn = make_train_step(model, OptConfig(
+        lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 5),
+        total_steps=TRAIN_STEPS))
+    profile_train_step(step_fn, out_c["params"], out_c["opt_state"], batch)
+    del out_c, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return params
+
+
+def lm_grads(model, params, batch) -> list:
+    """[loss, gradient of every leaf] by autograd."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves as lm_leaves
+    leaves = [t for _, t in lm_leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch)
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
+def lm_train_check_phase(dev, params) -> dict:
+    """23. train check: a smoke-config train step on the card against the
+    CPU; then phase 22's trained weights served through the kernel path and
+    the plain path.  Returns the serve check's kernel launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import LM, ModelImpl
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from repro_torch.train.optimizer import map_tree
+    from repro_torch.train.optimizer import tree_leaves as lm_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, smoke=True),
+                              dtype=torch.float32)
+    plain = ModelImpl(attn="xla", ssd="xla", moe="xla")
+    models = {d: LM(cfg, plain, device=d) for d in ("cpu", dev)}
+    p_cpu = models["cpu"].init(0)
+    hb = SyntheticLMDataset(cfg.vocab_size, TRAIN_CHECK_SEQ, 4,
+                            seed=0).batch_at(0)
+    batches = {d: {k: torch.from_numpy(v).to(d) for k, v in hb.items()}
+               for d in ("cpu", dev)}
+    g = {d: lm_grads(models[d], map_tree(lambda t: t.to(d), p_cpu),
+                     batches[d]) for d in ("cpu", dev)}
+    loss_err = abs(float(g[dev][0]) - float(g["cpu"][0]))
+    check(loss_err <= TRAIN_CHECK_LOSS_TOL,
+          f"train check: loss {float(g[dev][0])} vs CPU {float(g['cpu'][0])}")
+    grad_err = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(g[dev][1:], g["cpu"][1:]))
+    check(grad_err <= TRAIN_CHECK_GRAD_RTOL,
+          f"train check: gradients {grad_err:.3e} of a leaf's largest")
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    notes = []
+    for mb in (1, 2):
+        out = {}
+        for d in ("cpu", dev):
+            p = map_tree(lambda t: t.to(d, copy=True), p_cpu)
+            out[d] = make_train_step(models[d], opt, microbatches=mb)(
+                p, opt_init(p), batches[d])
+        m_card, m_cpu = out[dev][2], out["cpu"][2]
+        check(abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+              <= TRAIN_CHECK_LOSS_TOL,
+              f"train check mb {mb}: loss {float(m_card['loss'])} vs "
+              f"{float(m_cpu['loss'])}")
+        gn = abs(float(m_card["gnorm"]) - float(m_cpu["gnorm"])) \
+            / float(m_cpu["gnorm"])
+        check(gn <= TRAIN_CHECK_GRAD_RTOL, f"train check mb {mb}: gnorm {gn}")
+        lr = float(m_cpu["lr"])
+        loose = total = 0
+        worst = 0.0
+        for (path, a), (_, b) in zip(lm_leaves(out[dev][0]),
+                                     lm_leaves(out["cpu"][0])):
+            diff = (a.cpu() - b).abs()
+            worst = max(worst, float(diff.max()))
+            check(bool((diff <= 2 * lr + TRAIN_CHECK_STEP_ATOL).all()),
+                  f"train check mb {mb}: {path} moved {float(diff.max())}")
+            loose += int((diff > TRAIN_CHECK_STEP_ATOL).sum())
+            total += diff.numel()
+        check(loose <= TRAIN_CHECK_FRACTION * total,
+              f"train check mb {mb}: {loose} of {total} beyond "
+              f"{TRAIN_CHECK_STEP_ATOL}")
+        notes.append(f"mb {mb}: loss {float(m_card['loss']):.7f} vs "
+                     f"{float(m_cpu['loss']):.7f}, gnorm rel diff {gn:.2e}, "
+                     f"params max diff {worst:.3e} ({loose} of {total} "
+                     f"beyond {TRAIN_CHECK_STEP_ATOL})")
+    print(f"lm train check: {cfg.name} in f32, batch 4 x {TRAIN_CHECK_SEQ}, "
+          f"the card against the CPU: loss diff {loss_err:.2e}, gradients "
+          f"within {grad_err:.3e} of each leaf's largest; one step " +
+          "; ".join(notes))
+
+    # the trained full-width weights served, kernel path then plain path
+    full = get_config(TRAIN_ARCH)
+    toks = SyntheticLMDataset(full.vocab_size, SERVE_PROMPT, LM_BATCH,
+                              seed=0).batch_at(10_000)["tokens"]
+    prompts = [[int(t) for t in row] for row in toks]
+    model = build_model(full, device=dev)
+    max_len = SERVE_PROMPT + SERVE_NEW
+    engine = ServeEngine(model, params, batch_size=LM_BATCH, max_len=max_len,
+                         device=dev)
+    rec = tap_engine(engine, SERVE_NEW)
+    fa.launches = ss.launches = mr.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run([Request(req_id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                       for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "moe_router": mr.launches}
+    want = {"flash_attention": full.num_layers,
+            "moe_router": full.num_layers * SERVE_NEW}
+    check(launches == want and ss.launches == 0,
+          f"serve check launches {launches} (ssd {ss.launches}), expected "
+          f"{want}")
+    check(all(len(r.output) == SERVE_NEW for r in done),
+          "not every request got its tokens")
+    check(rec["nonfinite"] == 0, f"{rec['nonfinite']} non-finite logits")
+    print(f"lm train check: the trained {TRAIN_ARCH} served {LM_BATCH} "
+          f"prompts of {SERVE_PROMPT} tokens from the training stream, "
+          f"{SERVE_NEW} new tokens, through the kernel path in {wall:.3f} s "
+          f"(prefill {rec['prefill_s'][0] * 1e3:.2f} ms, decode "
+          f"{np.mean(rec['decode_s']) * 1e3:.3f} ms a step): launches "
+          f"{launches} (expected {want}); first outputs "
+          f"{[r.output[:8] for r in done[:2]]}")
+    cut = dataclasses.replace(full, num_layers=SERVE_CHECK_LAYERS)
+    p_cut = {**params, "blocks": params["blocks"][:SERVE_CHECK_LAYERS]}
+    engine = ServeEngine(build_model(cut, device=dev), p_cut,
+                         batch_size=LM_BATCH, max_len=max_len, device=dev)
+    rec = tap_engine(engine, SERVE_NEW)
+    done = engine.run([Request(req_id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                       for i, p in enumerate(prompts)])
+    plain_path_check(cut, p_cut, prompts, SERVE_NEW, done, rec, max_len, dev,
+                     f"lm train check: serve cut to {SERVE_CHECK_LAYERS} "
+                     "layers")
+    layerwise_check(full, params, torch.tensor(prompts, device=dev), dev)
+    return launches
+
+
+def layerwise_check(cfg, params, toks, dev) -> None:
+    """Prefill layer by layer on the plain path's hidden states: each
+    layer's update through the kernel path within LAYER_RTOL (RMS) of the
+    plain path's; then, to show why the paths are not held end to end at
+    full depth, the prefill logits of the kernel path against the plain
+    path and of the plain path against itself with layer 0's wq moved by
+    one bf16 ulp, at SERVE_CHECK_LAYERS and at every layer."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import ModelImpl
+
+    def rel(a, b):
+        return float((a.float() - b.float()).pow(2).mean().sqrt()
+                     / b.float().pow(2).mean().sqrt())
+
+    plain = ModelImpl(attn="xla", ssd="xla", moe="xla")
+    kernel, xla = build_model(cfg, device=dev), build_model(cfg, impl=plain,
+                                                           device=dev)
+    rels = []
+    with torch.inference_mode():
+        h = xla._embed_in(params, toks)
+        for p in params["blocks"]:
+            hk, _ = kernel.blocks[0].prefill(p, h)
+            hp, _ = xla.blocks[0].prefill(p, h)
+            rels.append(rel(hk.float() - h.float(), hp.float() - h.float()))
+            h = hp
+        check(max(rels) <= LAYER_RTOL,
+              f"layer by layer: kernel vs plain path {max(rels):.4f} > "
+              f"{LAYER_RTOL}")
+        notes = []
+        for n in (SERVE_CHECK_LAYERS, cfg.num_layers):
+            cut = dataclasses.replace(cfg, num_layers=n)
+            p = {**params, "blocks": params["blocks"][:n]}
+            moved = {**p, "blocks": [{**p["blocks"][0], "attn": {
+                **p["blocks"][0]["attn"],
+                "wq": (p["blocks"][0]["attn"]["wq"].float()
+                       * (1 + 2.0 ** -8)).to(cfg.dtype)}}] + p["blocks"][1:]}
+            xm = build_model(cut, impl=plain, device=dev)
+            lk = build_model(cut, device=dev).prefill(p, toks)[0][:, :cfg.vocab_size]
+            lx = xm.prefill(p, toks)[0][:, :cfg.vocab_size]
+            ly = xm.prefill(moved, toks)[0][:, :cfg.vocab_size]
+            notes.append(f"{n} layers: kernel vs plain {rel(lk, lx):.4f}, "
+                         f"plain vs plain with wq0 one bf16 ulp up "
+                         f"{rel(ly, lx):.4f}")
+    print(f"lm train check: layer by layer on the plain path's input, each "
+          f"layer's update through the kernel path within "
+          f"{max(rels):.4f} (RMS, relative; tolerance {LAYER_RTOL}) of the "
+          f"plain path's: {' '.join(f'{r:.4f}' for r in rels)}; prefill "
+          f"logits relative RMS, " + "; ".join(notes))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2130,6 +2692,18 @@ def main() -> int:
     control = control_plane_phase(dev)
     print(f"control plane: phase 21 took {time.perf_counter() - t0:.3f} s")
 
+    # ------------------------------------------------------- 22. LM train --
+    t0 = time.perf_counter()
+    trained_lm = lm_train_phase(dev)
+    print(f"lm train: phase 22 took {time.perf_counter() - t0:.3f} s")
+
+    # ------------------------------------------------- 23. LM train check --
+    t0 = time.perf_counter()
+    served = lm_train_check_phase(dev, trained_lm)
+    del trained_lm
+    print(f"lm train check: phase 23 took {time.perf_counter() - t0:.3f} s")
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - T_START:.3f} s")
+
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
     q_ms, q_plain_ms, q_b_ms, q_b_by = q_timings[MAIN_B]
@@ -2173,6 +2747,9 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces,
         "launches": lm_launches[name],
+        **({"launches_by_path": {"jamba-superblock-serve": lm_launches[name],
+                                 "granite-trained-serve": served[name]}}
+           if name in served else {}),
         "max_abs_err": lm_rows[name]["max_abs_err"],
         "ms": lm_rows[name]["ms"],
         "plain_ms": lm_rows[name]["plain_ms"],

@@ -9,8 +9,15 @@
 Parameters and caches hold one entry per layer (per superblock for the
 hybrid family), and the layers run in a Python loop where the reference
 scans over stacked layers.  Apply modes: `forward` (logits of every
-position), `prefill` (forward + cache out), `decode_step` (1 token, cache
-in/out).  Training (`loss`, remat, chunked cross-entropy) is not ported.
+position), `loss` (next-token cross-entropy + MoE aux, for training),
+`prefill` (forward + cache out), `decode_step` (1 token, cache in/out).
+
+Under autograd each layer is rematerialized (`torch.utils.checkpoint`,
+non-reentrant), as the reference's `jax.checkpoint` does over its scan
+body; `remat_policy="dots"` keeps matmul outputs
+(`create_selective_checkpoint_contexts`), the counterpart of
+`checkpoint_dots`.  The reference's `scan_unroll` is an accounting mode of
+XLA's scan and has no meaning here, so it is left out.
 
 Positional encoding is RoPE everywhere, as in the reference (which replaces
 whisper's learned/sinusoidal embeddings by RoPE).
@@ -19,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.agent import _resolve_device
@@ -39,10 +48,45 @@ from repro_torch.models.layers import (ParamSpec, apply_norm, embed_apply,
 class ModelImpl:
     """Which path each kernel-backed op takes.  The default is the kernel
     path; the "xla" values are the reference's plain einsum paths, kept for
-    parity tests and the on-card cross-check."""
+    parity tests, the on-card cross-check and training (no kernel has a
+    backward).  ``remat``, ``remat_policy`` and ``loss_chunk`` act only
+    where autograd records (``LM.loss`` under grad)."""
     attn: str = "flash"      # flash | xla | xla_chunked
     ssd: str = "kernel"      # kernel | xla
     moe: str = "fused"       # fused | xla
+    remat: bool = True
+    remat_policy: str = "full"   # full | dots | none
+    loss_chunk: int = 0      # 0 = unchunked cross-entropy
+
+
+# matmul outputs, which `remat_policy="dots"` keeps (jax's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, impl: ModelImpl) -> Callable:
+    """``fn`` rematerialized in the backward pass per ``impl``, where
+    autograd records; ``fn`` itself otherwise."""
+    if not impl.remat or impl.remat_policy == "none":
+        return fn
+    if impl.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {impl.remat_policy!r}")
+    kw: dict[str, Any] = {"use_reentrant": False}
+    if impl.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, **kwargs, **kw)
+
+    return wrapped
 
 
 # ================================================================== blocks ======
@@ -331,8 +375,9 @@ class LM:
     # ----------------------------------------------------------- encoder ----
     def _encode(self, params, audio_frames):
         h = audio_frames.to(self.cfg.dtype)
+        full = _remat(self.enc_block.full, self.impl)
         for p in params["encoder"]["blocks"]:
-            h, _ = self.enc_block.full(p, h)
+            h, _ = full(p, h)
         return apply_norm(params["encoder"]["final_norm"], h, self.cfg.norm)
 
     # ------------------------------------------------------------ forward ---
@@ -343,9 +388,11 @@ class LM:
         enc = self._encode(params, audio_frames) if cfg.family == "audio" else None
         h = self._embed_in(params, tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        layers = [(_remat(blk.full, self.impl), key)
+                  for blk, key in self._layers()]
         for entry in params["blocks"]:
-            for blk, key in self._layers():
-                h, a = blk.full(entry if key is None else entry[key], h, enc=enc)
+            for full, key in layers:
+                h, a = full(entry if key is None else entry[key], h, enc=enc)
                 if a is not None:
                     aux = aux + a
         h = apply_norm(params["final_norm"], h, cfg.norm)
@@ -359,6 +406,38 @@ class LM:
         if self.cfg.family == "vlm" and patch_embeds is not None:
             h = h[:, patch_embeds.shape[1]:, :]
         return self._unembed(params, h)
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Next-token cross-entropy (+ 0.01 x MoE aux), a 0-d f32 tensor.
+        ``batch`` holds tensors: tokens, labels (targets per position) and
+        the vlm/audio side inputs.  With ``impl.loss_chunk`` dividing L
+        (and below it) the cross-entropy runs chunk by chunk over the
+        sequence, each chunk rematerialized as the layers are, so only one
+        chunk's logits are live."""
+        cfg = self.cfg
+        h, aux = self.hidden_states(
+            params, batch["tokens"], patch_embeds=batch.get("patch_embeds"),
+            audio_frames=batch.get("audio_frames"))
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            h = h[:, batch["patch_embeds"].shape[1]:, :]
+        labels = batch["labels"].long()
+        table = params.get("unembed", params["embed"]["table"])
+
+        def xent(hc, lc):
+            logits = unembed_apply(table, hc, cfg.vocab_size)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+            return torch.sum(lse - gold)
+
+        C, L = self.impl.loss_chunk, h.shape[1]
+        if C and L % C == 0 and L > C:
+            chunk_xent = _remat(xent, self.impl)
+            total = torch.zeros((), dtype=torch.float32, device=h.device)
+            for c0 in range(0, L, C):
+                total = total + chunk_xent(h[:, c0:c0 + C], labels[:, c0:c0 + C])
+        else:
+            total = xent(h, labels)
+        return total / float(labels.numel()) + 0.01 * aux
 
     # ------------------------------------------------------------- caches ---
     def cache_schema(self, B: int, S: int) -> dict:

@@ -111,7 +111,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for c in range(nc):
         xq, dtq, Bq, Cq, csq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], cs[:, c]
         # intra-chunk (quadratic within the chunk)
-        decay = torch.exp(csq[:, :, None, :] - csq[:, None, :, :])   # (B,Q,Q,H)
+        # exp of the masked (j > i) differences overflows; masking before
+        # the exp keeps their gradient 0 instead of 0 * inf = nan
+        seg = csq[:, :, None, :] - csq[:, None, :, :]                 # (B,Q,Q,H)
+        decay = torch.exp(torch.where(tri, seg, -torch.inf))
         G = Cq.float() @ Bq.float().transpose(-1, -2)                 # (B,Q,Q)
         W = torch.where(tri, G[..., None] * decay, 0.0)               # (B,Q,Q,H)
         xdt = xq.float() * dtq[..., None]                             # (B,Q,H,P)

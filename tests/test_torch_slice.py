@@ -184,7 +184,11 @@ for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp"
              "repro_torch.fed.federation", "repro_torch.fed.router",
              "repro_torch.fed.scenarios", "repro_torch.obs.metrics",
              "repro_torch.obs.tracer", "repro_torch.obs.audit",
-             "repro_torch.obs.report"):
+             "repro_torch.obs.report", "repro_torch.data.lm_data",
+             "repro_torch.train.optimizer", "repro_torch.train.step",
+             "repro_torch.ckpt.checkpoint", "repro_torch.ckpt._msgpack",
+             "repro_torch.launch.train", "repro_torch.launch.mesh",
+             "repro_torch.launch.roofline"):
     assert name in names, name
 """
     env = dict(os.environ)
@@ -232,9 +236,10 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 
 
 def test_port_data_files_are_package_data():
-    """Every ``data/`` directory of the port is listed in pyproject.toml's
-    package data, and its glob matches the files on disk, so a
-    non-editable install carries them (the trace-replay scenario reads
+    """Every ``data/`` directory of the port that holds data files (not the
+    ``repro_torch.data`` package, which is code) is listed in
+    pyproject.toml's package data, and its glob matches the files on disk,
+    so a non-editable install carries them (the trace-replay scenario reads
     ``repro_torch/sched/data/trace_small.csv``)."""
     import glob
     import tomllib
@@ -242,9 +247,10 @@ def test_port_data_files_are_package_data():
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     src = os.path.join(REPO, "src")
-    data_dirs = sorted(dirpath for dirpath, _, _ in
+    data_dirs = sorted(dirpath for dirpath, _, files in
                        os.walk(os.path.join(src, "repro_torch"))
-                       if os.path.basename(dirpath) == "data")
+                       if os.path.basename(dirpath) == "data"
+                       and "__init__.py" not in files)
     assert data_dirs, "the port has no data directory"
     for path in data_dirs:
         package = os.path.relpath(os.path.dirname(path), src).replace(os.sep,
