@@ -130,7 +130,27 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     against the CPU's; then phase 22's trained weights served (4 prompts of
     512 tokens from the training stream, 16 new tokens) through the kernel
     path, counting flash-attention and router launches, and again through
-    the plain path at phase 15's tolerances.
+    the plain path at phase 15's tolerances;
+24. distribution, in subprocesses that own their process groups: (a) a
+    world of 1 over NCCL on the 1x1 host mesh: phase 22's cell for 2 steps
+    through ``train_loop(mesh=...)`` (params and moments DTensors), whose
+    losses must equal phase 22's run A's first two bit for bit (else be
+    within ``DIST_LOSS_RTOL``, the first difference printed); its step-2
+    checkpoint, written from the DTensors, restored onto the mesh by
+    ``load_checkpoint(mesh=..., spec_tree=...)`` bit for bit; the dry run
+    of the same cell on a 1x1 fake mesh, whose param and optimizer-state
+    bytes must equal the allocated shards', beside the measured peak; GPipe
+    (S 4, M 8) at world 1 (one stage of all four layers: no backend takes
+    point-to-point between ranks sharing one card); (b) four ranks on the
+    one card over gloo: ``pod_allreduce_compressed`` on CUDA tensors
+    equal to a numpy evaluation of its formula bit for bit;
+25. platform: ``generate_platform_trace(2048, seed=0)`` (runtimes from the
+    cost model at H100 rates) through the greedy loop at phase 4's
+    settings on the platform example's helios cluster, counting the
+    policy-MLP kernel's launches, the first 200 head and 200 tail calls
+    recomputed by the plain version as phase 5 does, a 96-job platform
+    schedule on the card equal to the CPU's, and the dry run of
+    ``granite-moe-1b-a400m`` x ``train_4k`` on the fake 16x16 mesh.
 
 Then one JSON line describing all five kernels (times, launches, bounds;
 ``launches_by_path`` gives each kernel's launches on each path it runs
@@ -1983,9 +2003,10 @@ def run_restart(train_mod, held, **kwargs):
     info = {}
 
     class Checked(real_mgr):
-        def restore(self, target_tree, device=None):
+        def restore(self, target_tree, device=None, mesh=None,
+                    spec_tree=None):
             t0 = time.perf_counter()
-            tree, step = super().restore(target_tree, device)
+            tree, step = super().restore(target_tree, device, mesh, spec_tree)
             torch.cuda.synchronize()
             info.update(step=step, s=time.perf_counter() - t0, leaves=0,
                         same=0, bytes=0)
@@ -2060,10 +2081,10 @@ def zlib_speeds(t, nbytes: int = 32 << 20) -> str:
             + "; ".join(parts))
 
 
-def lm_train_phase(dev) -> dict:
+def lm_train_phase(dev) -> tuple:
     """22. LM train: ``train_loop`` at full width on the card: run A
     uninterrupted, run B killed after step 8 (checkpoints every 4), run C
-    restarted from B's directory.  Returns A's trained params."""
+    restarted from B's directory.  Returns A's trained params and losses."""
     import shutil
     import numpy as np
     import torch
@@ -2211,7 +2232,7 @@ def lm_train_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return params
+    return params, losses
 
 
 def lm_grads(model, params, batch) -> list:
@@ -2400,6 +2421,395 @@ def layerwise_check(cfg, params, toks, dev) -> None:
           f"{max(rels):.4f} (RMS, relative; tolerance {LAYER_RTOL}) of the "
           f"plain path's: {' '.join(f'{r:.4f}' for r in rels)}; prefill "
           f"logits relative RMS, " + "; ".join(notes))
+
+
+# phase 24: distribution on the one card.  (a) a world of 1 over NCCL, the
+# 1x1 host mesh: phase 22's cell through train_loop(mesh=...), DIST_STEPS
+# steps, a checkpoint written from the DTensors after the last, restored
+# onto the mesh; the dry run of the same cell on a 1x1 fake mesh; the GPipe
+# schedule.  (b) four ranks on the card over gloo: the int8 compressed
+# all-reduce on CUDA tensors.  No backend takes point-to-point between ranks
+# that share one card (NCCL refuses two ranks on one device; gloo's send and
+# recv hand the tensor's pointer to its TCP transport, which reads host
+# memory), so the pipeline runs at world 1 over NCCL, one stage applying
+# all S layers: decided here, not by a fallback at run time.
+DIST_STEPS = 2
+DIST_CKPT = ROOT / "build" / "chip_smoke_dist_ckpt"
+DIST_LOSS_RTOL = 1e-6
+GLOO_WORLD = 4
+PIPE_S, PIPE_M, PIPE_MB, PIPE_L, PIPE_D = 4, 8, 2, 4, 16
+PIPE_ATOL = 1e-5
+# phase 25: platform jobs (core.costmodel) through the greedy loop on the
+# platform example's cluster (examples/cluster_failover.py: helios)
+PLATFORM_JOBS = 2048
+PLATFORM_SMALL = 96
+PLATFORM_CLUSTER = "helios"
+
+
+def run_ranks(phase: str, out: Path, world: int, timeout: int) -> None:
+    """``python chip_smoke.py --phase PHASE OUT`` in ``world`` processes
+    (RANK / WORLD_SIZE set, rendezvous on localhost); each must exit 0."""
+    from repro_torch.launch.ranks import run_ranks as launch
+    rcs = [rc for rc, _ in launch([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--phase", phase, str(out)], world,
+                                  timeout=timeout)]
+    check(all(rc == 0 for rc in rcs), f"phase {phase}: ranks exited {rcs}")
+
+
+def compress_inputs(world: int):
+    import numpy as np
+    x = np.arange(world * 8, dtype=np.float32).reshape(world, 8)
+    g = np.random.default_rng(3).standard_normal((world, 4096)).astype(
+        np.float32)
+    return x, g
+
+
+def nccl1_rank(out: Path) -> None:
+    """24 (a), the world-1 NCCL process."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.lm import LM, ModelImpl
+    from repro_torch.sharding.specs import DEFAULT_RULES
+    from repro_torch.train.optimizer import tree_leaves as lm_leaves
+    from repro_torch.train.pipeline import make_pipelined_apply
+    from repro_torch.train.step import sharded_specs
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl")
+    res: dict = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    mesh = make_host_mesh()
+    print(f"dist: world {res['world']} over {res['backend']}, mesh "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}",
+          flush=True)
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_a = train_loop(TRAIN_ARCH, steps=DIST_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, lr=TRAIN_LR, loss_chunk=LOSS_CHUNK,
+                       log_every=1, ckpt_dir=str(DIST_CKPT),
+                       ckpt_interval=DIST_STEPS, mesh=mesh)
+    res["train_s"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["losses"] = out_a["losses"]
+    res["step_s"] = out_a["step_s"]
+    params, opt = out_a["params"], out_a["opt_state"]
+    leaves = [t for _, t in lm_leaves({"params": params, "opt": opt})]
+    check(all(isinstance(t, DTensor) for t in leaves),
+          "the sharded run's state is not all DTensors")
+    res["param_bytes"] = sum(t.to_local().numel() * t.element_size()
+                             for _, t in lm_leaves(params))
+    res["opt_bytes"] = sum(t.to_local().numel() * t.element_size()
+                           for _, t in lm_leaves(opt))
+    # the step-2 checkpoint, written from the DTensors, restored onto the mesh
+    model = LM(get_config(TRAIN_ARCH), ModelImpl(attn="xla", ssd="xla",
+               moe="xla", loss_chunk=LOSS_CHUNK), device=mesh.device_type,
+               rules=DEFAULT_RULES)
+    pspecs, ospecs = sharded_specs(model, mesh)
+    t0 = time.perf_counter()
+    got, at = load_checkpoint(str(DIST_CKPT), {"params": params, "opt": opt},
+                              mesh=mesh, spec_tree={"params": pspecs,
+                                                    "opt": ospecs})
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    res["restore_step"] = at
+    pairs = list(zip(lm_leaves(got), lm_leaves({"params": params, "opt": opt})))
+    res["restore_leaves"] = len(pairs)
+    res["restore_same"] = sum(
+        bool(isinstance(a, DTensor) and a.placements == b.placements
+             and a.dtype == b.dtype and torch.equal(a.to_local(), b.to_local()))
+        for (_, a), (_, b) in pairs)
+    res["ckpt_bytes"] = sum(f.stat().st_size for f in DIST_CKPT.rglob("*")
+                            if f.is_file())
+    del got, pairs, out_a, params, opt, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+
+    # GPipe at world 1: one stage applying all PIPE_S layers
+    rng = np.random.default_rng(0)
+    Ws = torch.from_numpy(rng.standard_normal(
+        (PIPE_S, PIPE_D, PIPE_D)).astype(np.float32) * 0.3).cuda()
+    h = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (PIPE_M, PIPE_MB, PIPE_L, PIPE_D)).astype(np.float32)).cuda()
+
+    def all_layers(W, x):
+        for s in range(W.shape[0]):
+            x = torch.tanh(x @ W[s])
+        return x
+
+    pipe_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    got_p = make_pipelined_apply(all_layers, pipe_mesh, axis_name="pod",
+                                 num_microbatches=PIPE_M)(Ws[None], h)
+    res["pipe_err"] = float((got_p - all_layers(Ws, h)).abs().max())
+    dist.destroy_process_group()
+
+    # the dry run of the same cell on a 1x1 fake mesh
+    dryrun.init_fake_world(1)
+    try:
+        rec = dryrun.lower_cell(
+            TRAIN_ARCH, ShapeConfig("train_4k_b4", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train"),
+            make_host_mesh(device_type="cpu"),
+            impl=ModelImpl(attn="xla", ssd="xla", moe="xla",
+                           loss_chunk=LOSS_CHUNK), microbatches=1)
+    finally:
+        dist.destroy_process_group()
+    res["dry"] = rec
+    out.write_text(json.dumps(res))
+
+
+def gloo4_rank(out: Path) -> None:
+    """24 (b), one of the four gloo ranks on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import pod_allreduce_compressed
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x, g = compress_inputs(world)
+    red = pod_allreduce_compressed({"x": torch.from_numpy(x[rank]).cuda(),
+                                    "g": [torch.from_numpy(g[rank]).cuda()]})
+    check(red["x"].is_cuda and red["g"][0].is_cuda,
+          "the compressed all-reduce left the card")
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "backend": dist.get_backend(), "x": red["x"].cpu().tolist(),
+        "g": red["g"][0].cpu().tolist()}))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_phase(dev, run_a_losses: list) -> None:
+    """24. distribution on the card: (a) in a world-1 NCCL subprocess,
+    (b) in four gloo subprocesses."""
+    import numpy as np
+    import torch
+    from repro_torch.train.compression import pod_allreduce_formula
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "chip_smoke_dist.json"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run_ranks("nccl1", out, 1, timeout=600)
+    res = json.loads(out.read_text())
+    wall_a = time.perf_counter() - t0
+    losses, want = res["losses"], run_a_losses[:DIST_STEPS]
+    check(len(losses) == DIST_STEPS, f"the sharded run ran {len(losses)} steps")
+    if losses == want:
+        how = "bit for bit"
+    else:
+        i = next(i for i, (a, b) in enumerate(zip(losses, want)) if a != b)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        check(rel <= DIST_LOSS_RTOL,
+              f"sharded losses {losses} vs phase 22's {want}: {rel:.3e}")
+        how = (f"within {rel:.3e} relative (first difference at step "
+               f"{i + 1}: {losses[i]!r} vs {want[i]!r})")
+    print(f"dist: (a) world 1 over {res['backend']}: {TRAIN_ARCH} full width, "
+          f"phase 22's cell, {DIST_STEPS} steps through train_loop(mesh=...): "
+          f"losses {losses} equal phase 22's run A's first {DIST_STEPS} "
+          f"{how}; step_s {[round(x, 3) for x in res['step_s']]}, "
+          f"train_loop {res['train_s']:.3f} s (with the step-{DIST_STEPS} "
+          "checkpoint's write)")
+    check(res["restore_step"] == DIST_STEPS
+          and res["restore_same"] == res["restore_leaves"],
+          f"elastic restore: {res['restore_same']} of {res['restore_leaves']} "
+          f"leaves bit-equal at step {res['restore_step']}")
+    print(f"dist: (a) the step-{DIST_STEPS} checkpoint written from the "
+          f"DTensors ({res['ckpt_bytes'] / 1e9:.3f} GB) restored onto the "
+          f"mesh by load_checkpoint(mesh=..., spec_tree=...) in "
+          f"{res['restore_s']:.3f} s: {res['restore_same']} of "
+          f"{res['restore_leaves']} leaves equal bit for bit")
+    mem = res["dry"]["memory"]
+    check(mem["param_bytes"] == res["param_bytes"]
+          and mem["opt_bytes"] == res["opt_bytes"],
+          f"dry run params/opt bytes {mem['param_bytes']}/{mem['opt_bytes']} "
+          f"vs allocated {res['param_bytes']}/{res['opt_bytes']}")
+    print(f"dist: (a) dry run of this cell on a 1x1 fake mesh: params "
+          f"{mem['param_bytes']} B and optimizer state {mem['opt_bytes']} B "
+          f"equal the allocated local shards exactly; bytes_per_device "
+          f"{mem['bytes_per_device'] / 2**30:.3f} GiB (step peak "
+          f"{mem['peak_step_bytes'] / 2**30:.3f} GiB) beside the measured "
+          f"max_memory_allocated {res['peak_bytes'] / 2**30:.3f} GiB; traced "
+          f"in {res['dry']['trace_s']} s")
+    check(res["pipe_err"] <= PIPE_ATOL, f"pipeline err {res['pipe_err']}")
+    print(f"dist: (a) GPipe S={PIPE_S} M={PIPE_M} mb={PIPE_MB} L={PIPE_L} "
+          f"d={PIPE_D} at world 1 over NCCL (one stage applying all "
+          f"{PIPE_S} layers; no backend takes point-to-point between ranks "
+          f"sharing one card): max abs err {res['pipe_err']:.3e} against the "
+          f"sequential stages (atol {PIPE_ATOL}); (a) took {wall_a:.3f} s")
+
+    t0 = time.perf_counter()
+    outdir = ROOT / "build" / "chip_smoke_gloo"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for f in outdir.glob("rank*.json"):
+        f.unlink()
+    run_ranks("gloo4", outdir, GLOO_WORLD, timeout=300)
+    x, g = compress_inputs(GLOO_WORLD)
+    want_x = pod_allreduce_formula(list(x))
+    want_g = pod_allreduce_formula(list(g))
+    for r in range(GLOO_WORLD):
+        got = json.loads((outdir / f"rank{r}.json").read_text())
+        check(got["backend"] == "gloo", f"rank {r} ran over {got['backend']}")
+        check(np.array_equal(np.asarray(got["x"], np.float32), want_x)
+              and np.array_equal(np.asarray(got["g"], np.float32), want_g),
+              f"rank {r}: the compressed all-reduce differs from the formula")
+    mean_err = float(np.max(np.abs(want_x - x.mean(axis=0))))
+    check(mean_err < 0.2, f"compressed mean error {mean_err}")
+    print(f"dist: (b) {GLOO_WORLD} ranks on the one card over gloo: "
+          f"pod_allreduce_compressed on CUDA tensors ((8,) and (4096,) f32 a "
+          f"rank) equals the numpy formula bit for bit on every rank; "
+          f"max abs err from the mean {mean_err:.4f} (< 0.2); "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+def platform_rank(out: Path) -> None:
+    """25. the platform trace through the greedy loop on the card, then the
+    dry run of granite x train_4k on the fake 16x16 mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (PPOAgent, RLPrioritizer, Simulator,
+                                  make_cluster)
+    from repro_torch.core.costmodel import generate_platform_trace
+    from repro_torch.kernels import ops, policy_mlp as pm
+    from repro_torch.kernels.batch_score import BucketedScorer
+    from repro_torch.kernels.ref import policy_mlp_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pm.build()
+    t0 = time.perf_counter()
+    jobs = generate_platform_trace(PLATFORM_JOBS, seed=0)
+    gen_s = time.perf_counter() - t0
+    rt = np.asarray([j.runtime for j in jobs])
+    agent = PPOAgent(device="cuda")
+    scorer = BucketedScorer(agent.params["actor"])
+    record, counts = [], {"head": 0, "tail": 0}
+    in_tail = [False]
+    real_policy_mlp, real_score = ops.policy_mlp, scorer.score
+
+    def tapped(x, params, mask):
+        out = real_policy_mlp(x, params, mask)
+        kind = "tail" if in_tail[0] else "head"
+        counts[kind] += 1
+        if counts[kind] <= CHECK_DECISIONS:
+            record.append((kind, x.clone(), mask.clone(), out.clone()))
+        return out
+
+    def tail_score(feats):
+        in_tail[0] = True
+        try:
+            return real_score(feats)
+        finally:
+            in_tail[0] = False
+
+    scorer.score = tail_score
+    sim = Simulator(make_cluster(PLATFORM_CLUSTER), allocator="milp",
+                    backfill=True)
+    ops.policy_mlp = tapped
+    pm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = sim.run_batch([j.clone_pending() for j in jobs],
+                            RLPrioritizer(agent, explore=False,
+                                          deep_scorer=scorer))
+        torch.cuda.synchronize()
+    finally:
+        ops.policy_mlp = real_policy_mlp
+    wall = time.perf_counter() - t0
+    launches = pm.launches
+    done = sum(1 for j in res.jobs if j.finish_time >= 0)
+    check(done == PLATFORM_JOBS, f"platform: {done} of {PLATFORM_JOBS} done")
+    check(launches > 0 and launches >= res.decisions,
+          f"platform: {launches} launches for {res.decisions} decisions")
+    flat = [t for lyr in agent.params["actor"] for t in (lyr["w"], lyr["b"])]
+    worst = 0.0
+    with torch.no_grad():
+        for kind, x, mask, got in record:
+            plain = policy_mlp_ref(x, *flat, mask)
+            worst = max(worst, (got - plain).abs().max().item())
+            check(rank_agrees(got.cpu().numpy(), plain.cpu().numpy(), ATOL),
+                  f"platform {kind} ranking differs from the plain version's")
+    check(worst <= ATOL, f"platform logits vs plain: {worst:.3e}")
+    n_head = sum(1 for r in record if r[0] == "head")
+    tup = (res.makespan, res.total_wait, res.gpu_seconds_used, res.decisions,
+           res.milp_calls, res.backfills, res.restarts)
+    print(f"platform: generate_platform_trace({PLATFORM_JOBS}, seed=0) in "
+          f"{gen_s:.3f} s over {len({j.arch for j in jobs})} archs; runtimes "
+          f"at H100 rates over the V100 SKU: median {np.median(rt):.1f} s, "
+          f"{(rt <= 60.0).mean():.4f} at the 60 s clip, "
+          f"{(rt >= 7 * 86400.0).mean():.4f} at the 7-day clip", flush=True)
+    print(f"platform: {PLATFORM_CLUSTER}, milp + backfill, window 2560, greedy "
+          f"actor + BucketedScorer tail: BatchResult {tup}; decisions "
+          f"{res.decisions} head calls {counts['head']} tail calls "
+          f"{counts['tail']} policy_mlp launches {launches} wall_s "
+          f"{wall:.3f}; the first {n_head} head and {len(record) - n_head} "
+          f"tail calls against the plain version: max_abs_err {worst:.3e}, "
+          "rankings agree", flush=True)
+    small = []
+    for device in ("cuda", "cpu"):
+        a = PPOAgent(device=device)
+        r = Simulator(make_cluster(PLATFORM_CLUSTER), allocator="milp",
+                      backfill=True).run_batch(
+            generate_platform_trace(PLATFORM_SMALL, seed=0),
+            RLPrioritizer(a, explore=False,
+                          deep_scorer=BucketedScorer(a.params["actor"])))
+        small.append((r.makespan, r.total_wait, r.gpu_seconds_used,
+                      r.decisions, r.milp_calls, r.backfills, r.restarts))
+    check(small[0] == small[1],
+          f"platform {PLATFORM_SMALL}: card {small[0]} != CPU {small[1]}")
+    print(f"platform: {PLATFORM_SMALL} platform jobs: the card's BatchResult "
+          f"equals the CPU's {small[0]}", flush=True)
+
+    dryrun.init_fake_world(256)
+    try:
+        rec = dryrun.lower_cell(TRAIN_ARCH, "train_4k",
+                                make_production_mesh(device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    check(rec["dominant"] in ("compute_s", "memory_s", "collective_s"),
+          f"dry run: {rec['dominant']}")
+    print(f"platform: dry run {TRAIN_ARCH} x train_4k on the fake 16x16 mesh "
+          f"(256 ranks, microbatches {rec['microbatches']}), analytic at H100 "
+          f"rates: compute {rec['compute_s'] * 1e3:.3f} ms memory "
+          f"{rec['memory_s'] * 1e3:.3f} ms collective "
+          f"{rec['collective_s'] * 1e3:.3f} ms ({rec['collective_total']} B "
+          f"a chip, {sum(rec['collective_counts'].values())} collectives) "
+          f"dominant {rec['dominant']}; {rec['memory']['bytes_per_device'] / 2**30:.3f} "
+          f"GiB per device; traced FLOPs a chip {rec['hlo_flops_per_chip']:.4g} "
+          f"(analytic {rec['flops_per_chip']:.4g}); traced in {rec['trace_s']} s",
+          flush=True)
+    out.write_text(json.dumps({"launches": launches, "max_abs_err": worst,
+                               "decisions": res.decisions}))
+
+
+PHASES = {"nccl1": nccl1_rank, "gloo4": gloo4_rank, "platform": platform_rank}
+
+
+def phase_main(argv: list[str]) -> int:
+    """``--phase NAME OUT``: one of the subprocess phases above."""
+    sys.path.insert(0, str(SRC))
+    PHASES[argv[0]](Path(argv[1]))
+    return 0
+
+
+def platform_phase() -> dict:
+    """25. in its own subprocess (it owns a fake process group)."""
+    out = ROOT / "build" / "chip_smoke_platform.json"
+    out.unlink(missing_ok=True)
+    run_ranks("platform", out, 1, timeout=600)
+    return json.loads(out.read_text())
+
 
 
 def main() -> int:
@@ -2694,7 +3104,7 @@ def main() -> int:
 
     # ------------------------------------------------------- 22. LM train --
     t0 = time.perf_counter()
-    trained_lm = lm_train_phase(dev)
+    trained_lm, run_a_losses = lm_train_phase(dev)
     print(f"lm train: phase 22 took {time.perf_counter() - t0:.3f} s")
 
     # ------------------------------------------------- 23. LM train check --
@@ -2702,7 +3112,17 @@ def main() -> int:
     served = lm_train_check_phase(dev, trained_lm)
     del trained_lm
     print(f"lm train check: phase 23 took {time.perf_counter() - t0:.3f} s")
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - T_START:.3f} s")
+
+    # -------------------------------------------------- 24. distribution --
+    t0 = time.perf_counter()
+    dist_phase(dev, run_a_losses)
+    print(f"dist: phase 24 took {time.perf_counter() - t0:.3f} s")
+
+    # ------------------------------------------------ 25. platform trace --
+    t0 = time.perf_counter()
+    platform = platform_phase()
+    print(f"platform: phase 25 took {time.perf_counter() - t0:.3f} s")
+    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - T_START:.3f} s")
 
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
@@ -2718,8 +3138,9 @@ def main() -> int:
                              "train": trained["launches"], **rl_launches,
                              "fleet": fleet["policy_mlp"],
                              "fleet-check": fleet_check["policy_mlp"],
-                             "control-plane": control["policy_mlp"]},
-        "max_abs_err": max_err,
+                             "control-plane": control["policy_mlp"],
+                             f"platform-{PLATFORM_JOBS}": platform["launches"]},
+        "max_abs_err": max(max_err, platform["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
@@ -2767,4 +3188,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase_main(sys.argv[2:]) if sys.argv[1:2] == ["--phase"]
+             else main())

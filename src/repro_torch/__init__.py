@@ -12,5 +12,11 @@ workload stack serves (``configs``, ``models``, ``serve``,
 ``launch.serve``: prefill and greedy decode for every registered config)
 with flash attention, the Mamba2 SSD scan and the MoE router as
 hand-written CUDA kernels (``kernels.flash_attention``, ``ssd_scan``,
-``moe_router``); LM training is not ported yet.
+``moe_router``); LM training (``data``, ``train``, ``ckpt``,
+``launch.train``) runs on one card or, sharded as DTensors by the
+reference's logical-axis rules (``sharding``), on a mesh, with the int8
+compressed all-reduce and GPipe (``train.compression``, ``train.pipeline``),
+the dry run of the production meshes on a fake process group
+(``launch.dryrun``), and the cost model that turns it into platform job
+runtimes (``core.costmodel``).
 """

@@ -1,6 +1,6 @@
 """Fault-tolerant checkpointing in the reference's on-disk format: a
 msgpack manifest + zlib-compressed leaves, atomic commit, restore onto any
-device.
+device or, elastically, onto any mesh.
 
 Layout:  <dir>/step_<N>.tmp/  ->  rename  ->  <dir>/step_<N>/
            manifest.msgpack   {step, codec, leaves: {key: {shape, dtype, file}}}
@@ -19,6 +19,13 @@ interpreter lock).
 Async save: ``CheckpointManager.maybe_save`` copies every leaf to host
 memory before returning — a copy even of CPU tensors, which the train step
 updates in place — and a worker thread writes the copy.
+
+Sharded trees (DTensor leaves): every rank gathers each leaf's full array
+(``full_tensor``, a collective) and rank 0 alone writes, so the files are
+those of the same values saved unsharded.  ``load_checkpoint(...,
+mesh=..., spec_tree=...)`` reads the full arrays on every rank and places
+each by its spec (``distribute_tensor``): a checkpoint restores onto any
+mesh, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -67,8 +74,26 @@ def _map_keyed(fn: Callable[[str, Any], Any], tree, prefix: tuple = ()) -> Any:
     return fn("/".join(prefix), tree)
 
 
+def _is_writer() -> bool:
+    """Rank 0 of a distributed job, or any process outside one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _at(tree, key: str):
+    """The entry of a nested dict/list tree at a ``/``-joined key path (a
+    spec tree's leaves are tuples, so they are looked up, not walked)."""
+    for part in key.split("/") if key else ():
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
 def _host_copy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """(a host copy of the tensor's bytes as numpy, its dtype name)."""
+    """(a host copy of the tensor's bytes as numpy, its dtype name); a
+    DTensor's full array, gathered on every rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
@@ -115,9 +140,17 @@ def _write(path: str, step: int, flat: dict[str, tuple[np.ndarray, str]]
 
 
 def save_checkpoint(path: str, step: int, tree) -> str:
-    """Synchronous atomic save of a nested dict/list tree of tensors.
-    Returns the committed directory."""
-    return _write(path, step, _snapshot(tree))
+    """Synchronous atomic save of a nested dict/list tree of tensors (or
+    DTensors: call on every rank; rank 0 writes, and every rank returns
+    once the checkpoint is committed).  Returns the committed directory."""
+    import torch.distributed as dist
+    flat = _snapshot(tree)
+    final = os.path.join(path, f"step_{step:08d}")
+    if _is_writer():
+        _write(path, step, flat)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def latest_step(path: str) -> int | None:
@@ -141,11 +174,14 @@ def _read_leaf(d: str, meta: dict, codec: str) -> torch.Tensor:
 
 
 def load_checkpoint(path: str, target_tree, step: int | None = None,
-                    device: torch.device | str | None = None):
+                    device: torch.device | str | None = None, mesh=None,
+                    spec_tree=None):
     """Restore into the structure and dtypes of ``target_tree`` (a tree of
-    tensors).  Leaves go to ``device``, or to each target leaf's device.
-    Missing keys raise; extra keys in the checkpoint are ignored.
-    Returns (tree, step)."""
+    tensors, DTensors or meta tensors).  Leaves go to ``device``, or to
+    each target leaf's device; with ``mesh`` and ``spec_tree`` (a matching
+    tree of specs) each becomes a DTensor on ``mesh`` placed by its spec:
+    elastic restore onto any mesh.  Missing keys raise; extra keys in the
+    checkpoint are ignored.  Returns (tree, step)."""
     step = latest_step(path) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -155,6 +191,12 @@ def load_checkpoint(path: str, target_tree, step: int | None = None,
     leaves_meta = manifest["leaves"]
     codec = manifest.get("codec", "zstd")   # pre-fallback checkpoints: zstd
 
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.sharding.specs import placements
+        if device is None:
+            device = mesh.device_type
     keys: list[str] = []
     _map_keyed(lambda key, leaf: keys.append(key), target_tree)
     for key in keys:
@@ -166,7 +208,11 @@ def load_checkpoint(path: str, target_tree, step: int | None = None,
 
         def place(key, leaf):
             dev = leaf.device if device is None else torch.device(device)
-            return futs[key].result().to(device=dev, dtype=leaf.dtype)
+            t = futs[key].result().to(device=dev, dtype=leaf.dtype)
+            if mesh is None:
+                return t
+            return distribute_tensor(t, mesh,
+                                     placements(_at(spec_tree, key), mesh))
 
         return _map_keyed(place, target_tree), manifest["step"]
 
@@ -183,10 +229,14 @@ class CheckpointManager:
         os.makedirs(path, exist_ok=True)
 
     def maybe_save(self, step: int, tree) -> bool:
+        """At every ``interval``-th step, snapshot ``tree`` (on every rank,
+        for a sharded tree) and write it in the background (rank 0)."""
         if step % self.interval != 0:
             return False
         self.wait()
         flat_snapshot = _snapshot(tree)        # host copy before async write
+        if not _is_writer():
+            return True
 
         def _write_and_gc():
             _write(self.path, step, flat_snapshot)
@@ -207,13 +257,17 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.path, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore(self, target_tree, device: torch.device | str | None = None):
-        """(tree, step) from the newest checkpoint, or (None, None)."""
+    def restore(self, target_tree, device: torch.device | str | None = None,
+                mesh=None, spec_tree=None):
+        """(tree, step) from the newest checkpoint, or (None, None); with
+        ``mesh`` and ``spec_tree``, placed on the mesh (see
+        ``load_checkpoint``)."""
         self.wait()
         step = latest_step(self.path)
         if step is None:
             return None, None
-        return load_checkpoint(self.path, target_tree, step, device)
+        return load_checkpoint(self.path, target_tree, step, device, mesh,
+                               spec_tree)
 
     def close(self) -> None:
         self.wait()

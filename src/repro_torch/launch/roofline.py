@@ -6,12 +6,193 @@ config, against one H100's rates (``launch.mesh``):
   collective = collective_bytes_per_chip / 450e9 (NVLink, one direction)
 
 ``analytic_cost`` and ``model_flops`` are the reference's formulas
-unchanged.  The reference's HLO parser (collective bytes from a compiled
-dry run) comes with the distribution slice.
+unchanged.
+
+The reference reads collective bytes from the compiled per-device HLO
+(``collective_bytes``, each collective's output-shape bytes, multiplied by
+enclosing while-loop trip counts).  There is no HLO here: a step runs
+eagerly, on DTensors, so ``CollectiveCounter`` (a dispatch mode) sees every
+collective as it is issued on a chip's local tensors and keeps the same
+record: bytes per chip by kind plus ``_counts``, each collective counted
+at its output's bytes, and a loop counted once per trip because it runs
+once per trip.  It counts the local ops' FLOPs too, with
+``torch.utils.flop_counter``'s formulas (FlopCounterMode's own counts
+global DTensor shapes, since a mode sees a DTensor op before DTensor
+splits it into local ones).
 """
 from __future__ import annotations
 
+import sys
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+# op name fragment -> kind.  Point to point: a hand-off is counted once, at
+# the receiving end (recv), and a broadcast from one stage is the
+# reference's collective-permute; sends are not counted.
+_KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
+          ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+          ("reduce_scatter", "reduce-scatter"),
+          ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+          ("recv", "collective-permute"),
+          ("broadcast", "collective-permute"))
+
+
+def _tensors(x) -> list[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for e in x for t in _tensors(e)]
+    return []
+
+
+def _kind(func) -> str | None:
+    ns = func.namespace
+    if ns not in ("c10d", "_c10d_functional"):
+        return None
+    name = func._overloadpacket.__name__
+    for frag, kind in _KINDS:
+        if frag in name:
+            return kind
+    return None
+
+
+# DTensor's sharding propagator runs each op on global shapes in methods of
+# this prefix (``ShardingPropagator._propagate_tensor_meta*``)
+_PROPAGATE = "_propagate_tensor_meta"
+
+
+def _check_propagator() -> None:
+    """Raise unless this torch's sharding propagator has the methods that
+    ``_propagating`` looks for: under another name the counter would count
+    DTensor's bookkeeping as the chip's work, and say nothing."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    if not any(n.startswith(_PROPAGATE) for n in dir(ShardingPropagator)):
+        raise RuntimeError(
+            f"torch {torch.__version__}: ShardingPropagator has no "
+            f"{_PROPAGATE}* method; CollectiveCounter cannot tell sharding "
+            "propagation from the step's own ops")
+
+
+def _propagating(entry_mode) -> bool:
+    """Whether the op being dispatched is DTensor's sharding propagation:
+    DTensor runs each op once on global shapes, under a fake mode (a new
+    one, or the active one where there is one), to learn its output's
+    metadata.  That is bookkeeping, not the chip's work."""
+    from torch._guards import active_fake_mode
+    if active_fake_mode() is not entry_mode:
+        return True
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_name.startswith(_PROPAGATE):
+            return True
+        frame = frame.f_back
+    return False
+
+
+def _op_key(func, args) -> str:
+    """``name(shape, shape, ...)`` of an op and its tensor arguments."""
+    shapes = ", ".join("x".join(map(str, t.shape)) for t in _tensors(args))
+    return f"{func._overloadpacket.__name__}({shapes})"
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Counts, per chip, the collectives, FLOPs and memory of everything
+    that runs while it is entered: ``record()`` gives the reference's
+    ``collective_bytes`` dict, ``flops`` the local ops' FLOPs, and
+    ``peak_bytes`` the most bytes that tensors created in that time held
+    at once (a storage counts from the op that made it until its last
+    tensor is freed).
+
+    DTensor ops are let through (``NotImplemented``), so DTensor splits
+    them into local ops and collectives, which come back through this
+    mode.  Functional collectives are counted at their result, c10d ones
+    at their first argument (the tensors they write).  Ops that DTensor
+    runs on global shapes to propagate shardings (under a fake mode other
+    than the one active at entry) are not counted.
+
+    ``flops_by_op`` and ``bytes_by_op`` split ``flops`` and the collective
+    bytes by op and argument shapes (``"mm(8192x1024, 1024x3072)"``,
+    ``"all-gather: all_gather_into_tensor(...)"``)."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        _check_propagator()
+        self._flop_registry = flop_registry
+        self._fake_mode = None
+        self.bytes = {k: 0 for k in _COLLECTIVES}
+        self.counts = {k: 0 for k in _COLLECTIVES}
+        self.flops = 0
+        self.flops_by_op: dict[str, int] = {}
+        self.bytes_by_op: dict[str, int] = {}
+        self._live: dict[int, list[int]] = {}   # storage -> [refs, bytes]
+        self.live_bytes = 0
+        self.peak_bytes = 0
+
+    def __enter__(self):
+        from torch._guards import active_fake_mode
+        self._fake_mode = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if _propagating(self._fake_mode):
+            return out
+        self._track(args, out)
+        kind = _kind(func)
+        if kind is not None:
+            written = out if func.namespace == "_c10d_functional" else args[0]
+            n = sum(t.numel() * t.element_size() for t in _tensors(written))
+            self.bytes[kind] += n
+            self.counts[kind] += 1
+            key = f"{kind}: {_op_key(func, args)}"
+            self.bytes_by_op[key] = self.bytes_by_op.get(key, 0) + n
+        else:
+            count = self._flop_registry.get(func._overloadpacket)
+            if count is not None:
+                n = count(*args, **kwargs, out_val=out)
+                self.flops += n
+                key = _op_key(func, args)
+                self.flops_by_op[key] = self.flops_by_op.get(key, 0) + n
+        return out
+
+    def _track(self, args, out) -> None:
+        """Count storages the op created (not its inputs', as in-place ops
+        and views return) as live until their last tensor is freed."""
+        seen = {t.untyped_storage()._cdata for t in _tensors(args)}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in seen:
+                continue
+            ent = self._live.get(key)
+            if ent is None:
+                ent = self._live[key] = [0, st.nbytes()]
+                self.live_bytes += ent[1]
+                self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            ent[0] += 1
+            weakref.finalize(t, self._release, key)
+
+    def _release(self, key: int) -> None:
+        ent = self._live[key]
+        ent[0] -= 1
+        if ent[0] == 0:
+            self.live_bytes -= ent[1]
+            del self._live[key]
+
+    def record(self) -> dict:
+        """{kind: bytes per chip, ..., "_counts": {kind: n}}."""
+        return {**self.bytes, "_counts": dict(self.counts)}
 
 
 # ------------------------------------------------------------- analytic model ---

@@ -1,32 +1,43 @@
-"""The training entry point, on one device.
+"""The training entry point, on one device or on a mesh.
 
 Deterministic restart-safe data, periodic async checkpoints, restore and
-continue, gradient-accumulation microbatching and step-time logging, as
-the reference's `launch/train.py`; the model trains on its plain paths
-(``ModelImpl(attn="xla", ssd="xla", moe="xla")``: no kernel has a
-backward) with every layer rematerialized.  Meshes (``--production-mesh``,
-``--multi-pod``) come with the distribution slice.
+continue (elastic: onto whatever mesh is running), gradient-accumulation
+microbatching and step-time logging, as the reference's `launch/train.py`;
+the model trains on its plain paths (``ModelImpl(attn="xla", ssd="xla",
+moe="xla")``: no kernel has a backward) with every layer rematerialized.
+Given a mesh, params and optimizer state are DTensors placed by the
+reference's rules and the step is ``shard_train_step``'s.
 
 Smoke mode on the CPU (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
 Without ``--device`` it runs on the GPU (``cuda``) and raises where there is
-none.
+none.  On the production meshes, one process per card (NCCL):
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \\
+      --arch yi-6b --production-mesh          # 16x16: 256 ranks
+  ... --multi-pod                             # 2x16x16: 512 ranks
+(``--device cpu`` runs the ranks over gloo.)  A world of the wrong size
+raises.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.agent import _resolve_device
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.models.lm import LM, ModelImpl
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.sharding.specs import DEFAULT_RULES
 from repro_torch.train.optimizer import OptConfig, opt_init
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import (distribute_tree, make_train_step,
+                                    shard_train_step, sharded_specs)
 
 
 def train_loop(arch: str, *, smoke: bool = False, steps: int = 50,
@@ -34,16 +45,21 @@ def train_loop(arch: str, *, smoke: bool = False, steps: int = 50,
                ckpt_dir: str | None = None, ckpt_interval: int = 20,
                log_every: int = 10, lr: float = 3e-4, resume: bool = True,
                loss_chunk: int = 0,
-               device: torch.device | str | None = None) -> dict:
+               device: torch.device | str | None = None, mesh=None) -> dict:
     """Train ``arch`` from seeded weights (or from the newest checkpoint in
-    ``ckpt_dir``) up to ``steps``.  Returns {losses, gnorms, step_s,
-    final_loss, params, opt_state, start_step}: per step run, the loss,
-    the global gradient norm and the step's seconds (host clock, from the
-    batch's upload to the loss read, which synchronises)."""
-    dev = _resolve_device(device, "train_loop")
+    ``ckpt_dir``) up to ``steps``, on ``device`` or, given ``mesh`` (a
+    DeviceMesh; every rank calls this), sharded over it.  Returns {losses,
+    gnorms, step_s, final_loss, params, opt_state, start_step}: per step
+    run, the loss, the global gradient norm and the step's seconds (host
+    clock, from the batch's upload to the loss read, which synchronises);
+    on a mesh params and opt_state are DTensors."""
+    dev = _resolve_device(device if mesh is None else mesh.device_type,
+                          "train_loop")
     cfg = get_config(arch, smoke=smoke)
+    rules = DEFAULT_RULES if mesh is not None else None
     model = LM(cfg, impl=ModelImpl(attn="xla", ssd="xla", moe="xla",
-                                   loss_chunk=loss_chunk), device=dev)
+                                   loss_chunk=loss_chunk), device=dev,
+               rules=rules)
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(steps // 10, 5),
                         total_steps=steps)
     step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
@@ -51,11 +67,21 @@ def train_loop(arch: str, *, smoke: bool = False, steps: int = 50,
     ds = SyntheticLMDataset(cfg.vocab_size, seq, batch, seed=0)
     mgr = CheckpointManager(ckpt_dir, interval=ckpt_interval) if ckpt_dir \
         else None
-    params = model.init(0)
-    opt_state = opt_init(params)
+    place = None
+    if mesh is None:
+        params = model.init(0)
+        opt_state = opt_init(params)
+    else:
+        # shard as drawn: no rank ever holds the full params or moments
+        step_fn, _ = shard_train_step(model, step_fn, mesh, rules)
+        pspecs, ospecs = sharded_specs(model, mesh, rules)
+        place = {"params": pspecs, "opt": ospecs}
+        params = model.init(0, mesh=mesh)
+        opt_state = distribute_tree(opt_init(params), ospecs, mesh)
     start_step = 0
     if mgr is not None and resume:
-        restored, at = mgr.restore({"params": params, "opt": opt_state})
+        restored, at = mgr.restore({"params": params, "opt": opt_state},
+                                   mesh=mesh, spec_tree=place)
         if restored is not None:
             params, opt_state = restored["params"], restored["opt"]
             start_step = int(at)
@@ -101,22 +127,32 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt-interval", type=int, default=20)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh (not ported: distribution slice)")
-    ap.add_argument("--multi-pod", action="store_true")
+                    help="the 16x16 mesh: 256 ranks (torchrun)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 mesh: 512 ranks (torchrun)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod: multi-device meshes are not "
-            "ported yet (the distribution slice: sharding/specs.py, "
-            "launch/mesh.py's mesh factories); this entry point trains on one "
-            "device")
-    out = train_loop(args.arch, smoke=args.smoke, steps=args.steps,
-                     batch=args.batch, seq=args.seq,
-                     microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
-                     ckpt_interval=args.ckpt_interval, lr=args.lr,
-                     device=args.device)
+    sharded = args.production_mesh or args.multi_pod
+    mesh = None
+    if sharded:
+        dev = _resolve_device(args.device, "train")
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        if sharded:
+            mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                        device_type=dev.type)
+        out = train_loop(args.arch, smoke=args.smoke, steps=args.steps,
+                         batch=args.batch, seq=args.seq,
+                         microbatches=args.microbatches,
+                         ckpt_dir=args.ckpt_dir,
+                         ckpt_interval=args.ckpt_interval, lr=args.lr,
+                         device=args.device, mesh=mesh)
+    finally:
+        if sharded:
+            dist.destroy_process_group()
     print(f"[train] done; final loss {out['final_loss']:.4f}")
 
 

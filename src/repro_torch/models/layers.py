@@ -2,8 +2,9 @@
 
 Params are plain nested dicts (and per-layer lists) of tensors.  Every leaf
 is declared once as a `ParamSpec(shape, logical, ...)`; from the schema we
-derive random inits and parameter counts.  `logical` names each axis as the
-reference's sharding rules do; nothing is sharded yet.
+derive random inits, abstract tensors on the ``meta`` device (the dry
+run), parameter counts, and sharding specs: `logical` names each axis as
+the reference's sharding rules do.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.specs import (AxisRules, logical_spec,
+                                        with_logical_constraint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,11 +42,15 @@ def map_schema(fn: Callable[[ParamSpec], Any], schema) -> Any:
 
 
 def init_from_schema(generator: torch.Generator, schema,
-                     device: torch.device) -> Any:
+                     device: torch.device,
+                     place: Callable[[torch.Tensor, ParamSpec], Any] | None
+                     = None) -> Any:
     """Random tensors for every leaf, drawn from ``generator`` (which lives
     on ``device``) with the reference's rule: normal leaves get std
     ``scale / sqrt(fan_in)``, fan_in being the second-to-last dim (the last
-    one for 1-D leaves)."""
+    one for 1-D leaves).  ``place(leaf, spec)``, where given, gets each leaf
+    as soon as it is drawn and its result is kept instead, so the full
+    leaves need never be live together."""
     def init_one(s: ParamSpec) -> torch.Tensor:
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
@@ -52,9 +60,22 @@ def init_from_schema(generator: torch.Generator, schema,
         std = s.scale / math.sqrt(max(fan_in, 1))
         w = torch.randn(s.shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * std).to(s.dtype)
+        return w.mul_(std).to(s.dtype)
 
-    return map_schema(init_one, schema)
+    if place is None:
+        return map_schema(init_one, schema)
+    return map_schema(lambda s: place(init_one(s), s), schema)
+
+
+def abstract_from_schema(schema) -> Any:
+    """Tensors of every leaf's shape and dtype on the ``meta`` device: no
+    storage, the counterpart of the reference's ShapeDtypeStructs."""
+    return map_schema(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), schema)
+
+
+def specs_from_schema(schema, rules: AxisRules | None = None, mesh=None) -> Any:
+    return map_schema(lambda s: logical_spec(s.logical, rules, mesh), schema)
 
 
 def stack_schema(schema, n: int) -> Any:
@@ -168,14 +189,19 @@ def mlp_schema(d_model: int, d_ff: int, activation: str, dtype) -> dict:
     return sch
 
 
-def mlp_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, activation: str,
+              rules: AxisRules | None = None) -> torch.Tensor:
+    """The (gated) MLP.  On DTensors the hidden activations are held to
+    ("batch", "seq", "ffn"), so that rows stay split by batch alone."""
     act = activation_fn(activation)
-    up = x @ p["w_up"]
+    hidden = ("batch", "seq", "ffn")
+    up = with_logical_constraint(x @ p["w_up"], hidden, rules)
     if "w_gate" in p:
-        up = up * act(x @ p["w_gate"])
+        up = up * act(with_logical_constraint(x @ p["w_gate"], hidden, rules))
     else:
         up = act(up)
-    return up @ p["w_down"]
+    return with_logical_constraint(up @ p["w_down"],
+                                   ("batch", "seq", "embed_act"), rules)
 
 
 # --- Embedding ------------------------------------------------------------------
@@ -187,7 +213,46 @@ def embed_schema(vocab: int, d_model: int, dtype) -> dict:
 
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    table = p["table"]
+    from torch.distributed.tensor import DTensor
+    if isinstance(table, DTensor):
+        return _embed_vocab_parallel(table, tokens)
+    return table[tokens.long()]
+
+
+def _embed_vocab_parallel(table, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup on a DTensor table whose vocab rows may be sharded: each
+    rank looks its tokens up in its own rows (rows it does not hold read
+    0) and the ranks' partial rows are summed, one of them non-zero, so the
+    values and their gradients are the plain lookup's bit for bit.  (DTensor's
+    own sharded lookup does not differentiate on every torch version.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    t_pl = [pl if pl.is_shard(0) else Replicate() for pl in table.placements]
+    ax = next((i for i, pl in enumerate(t_pl) if pl.is_shard(0)), None)
+    placed = isinstance(tokens, DTensor)   # plain tokens: the same on every rank
+    tok_pl = [pl if placed and i != ax else Replicate()
+              for i, pl in enumerate(tokens.placements if placed else t_pl)]
+    out_pl = [Partial() if i == ax else pl for i, pl in enumerate(tok_pl)]
+    # the table's gradient sums over the ranks that split the tokens
+    grad_pl = [Partial() if not pl.is_shard() and tok_pl[i].is_shard() else pl
+               for i, pl in enumerate(t_pl)]
+    rows = table.shape[0] // (mesh.size(ax) if ax is not None else 1)
+    e0 = None if ax is None else mesh.get_local_rank(ax) * rows
+
+    def lookup(t, tok):
+        if e0 is None:
+            return t[tok.long()]
+        tok = tok.long() - e0
+        mine = (tok >= 0) & (tok < t.shape[0])
+        return t[torch.where(mine, tok, 0)] * mine[..., None].to(t.dtype)
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(t_pl, tok_pl if placed else None),
+                     in_grad_placements=(grad_pl, tok_pl if placed else None),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed_apply(table: torch.Tensor, h: torch.Tensor,
@@ -197,5 +262,8 @@ def unembed_apply(table: torch.Tensor, h: torch.Tensor,
     logits = h.float() @ table.float().T
     V = table.shape[0]
     if real_vocab is not None and real_vocab < V:
-        logits[..., real_vocab:] = -1e30
+        # a mask over the columns rather than a slice assignment, which a
+        # vocab-sharded DTensor cannot take
+        pad = torch.arange(V, device=logits.device) >= real_vocab
+        logits = logits.masked_fill(pad, -1e30)
     return logits

@@ -37,11 +37,16 @@ from repro_torch.core.agent import _resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamSpec, apply_norm, embed_apply,
-                                       embed_schema, init_from_schema,
-                                       map_schema, mlp_apply, mlp_schema,
-                                       norm_schema, param_count,
+from repro_torch.models.layers import (ParamSpec, abstract_from_schema,
+                                       apply_norm, embed_apply, embed_schema,
+                                       init_from_schema, map_schema,
+                                       mlp_apply, mlp_schema, norm_schema,
+                                       param_count, specs_from_schema,
                                        unembed_apply)
+from repro_torch.sharding.specs import (PRODUCTION_TP, AxisRules,
+                                        gather_fsdp, logical_spec, placements,
+                                        sanitize_spec,
+                                        with_logical_constraint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +94,40 @@ def _remat(fn: Callable, impl: ModelImpl) -> Callable:
     return wrapped
 
 
+def _pick_last(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``logits[..., idx]``: a gather, or on a DTensor (vocab sharded) a
+    masked sum over the vocab, which keeps the logits sharded and adds
+    only zeros to the picked entry, so the value and its gradient are the
+    gather's bit for bit."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, idx[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=idx.device)
+    return torch.where(idx[..., None] == vocab, logits, 0.0).sum(-1)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last (vocab) dim.  Of a DTensor whose
+    vocab dim is split over ranks, as the row max plus the log of the
+    summed exponentials: each reduces across the shards as one (B, L)
+    all-reduce, where ``torch.logsumexp`` would gather every rank's logits
+    in full (the (B, L, vocab) f32 logits, on every rank)."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(logits, DTensor) and any(
+            p.is_shard(logits.ndim - 1) and n > 1
+            for p, n in zip(logits.placements, logits.device_mesh.shape))):
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    def reduced(t):   # a partial max or sum over the shards, reduced now
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+
+    m = reduced(logits.detach().amax(dim=-1, keepdim=True))
+    s = reduced(torch.exp(logits - m).sum(-1, keepdim=True))
+    return (m + torch.log(s))[..., 0]
+
+
 # ================================================================== blocks ======
 
 
@@ -96,8 +135,9 @@ class Block:
     """One transformer layer: mixer (attn | mamba | cross) + optional FFN."""
 
     def __init__(self, cfg: ModelConfig, impl: ModelImpl, *, mixer: str,
-                 ffn: str, causal: bool = True, cross: bool = False):
-        self.cfg, self.impl = cfg, impl
+                 ffn: str, causal: bool = True, cross: bool = False,
+                 rules: AxisRules | None = None):
+        self.cfg, self.impl, self.rules = cfg, impl, rules
         self.mixer, self.ffn, self.causal, self.cross = mixer, ffn, causal, cross
 
     # ----------------------------------------------------------- schema -----
@@ -124,7 +164,11 @@ class Block:
         if self.mixer == "attn":
             KV, hd = cfg.num_kv_heads, cfg.head_dim_
             Sw = min(S, cfg.window) if cfg.window > 0 else S
-            kv = ("batch", "kv_heads", "kv_seq", "head_dim")
+            # shard KV heads over `model` only when they tile it
+            # (PRODUCTION_TP); otherwise the cache length (kv_seq) takes the
+            # axis, so decode caches of GQA models still shard 512 ways
+            kvh = "kv_heads" if KV % PRODUCTION_TP == 0 else None
+            kv = ("batch", kvh, "kv_seq", "head_dim")
             out["k"] = ParamSpec((B, KV, Sw, hd), kv, cfg.dtype, "zeros")
             out["v"] = ParamSpec((B, KV, Sw, hd), kv, cfg.dtype, "zeros")
         else:
@@ -154,12 +198,13 @@ class Block:
         hn = apply_norm(p["norm2"], h, cfg.norm)
         if self.ffn == "moe":
             if with_aux:
-                logits = hn.float() @ p["ffn"]["router"]
+                logits = moe_mod.router_logits(p["ffn"], hn, self.rules)
                 _, experts = moe_mod.router_topk(logits, cfg.experts_per_token)
                 aux = moe_mod.moe_aux_loss(logits, experts, cfg.num_experts)
-            out = moe_mod.moe_apply(p["ffn"], hn, cfg, self.impl.moe)
+            out = moe_mod.moe_apply(p["ffn"], hn, cfg, self.impl.moe,
+                                    rules=self.rules)
         else:
-            out = mlp_apply(p["ffn"], hn, cfg.activation)
+            out = mlp_apply(p["ffn"], hn, cfg.activation, self.rules)
         return h + out, aux
 
     def full(self, p: dict, h: torch.Tensor, *, enc: torch.Tensor | None = None,
@@ -167,18 +212,21 @@ class Block:
              ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Full-sequence apply. Returns (h, moe_aux or None)."""
         cfg = self.cfg
+        p = gather_fsdp(p, self.rules)
         hn = apply_norm(p["norm1"], h, cfg.norm)
         if self.mixer == "attn":
             mix = attn_mod.attention(p["attn"], hn, cfg, causal=self.causal,
                                      window=cfg.window, positions=positions,
-                                     impl=self.impl.attn)
+                                     impl=self.impl.attn, rules=self.rules)
         else:
-            mix = mamba_mod.mamba_forward(p["mamba"], hn, cfg, self.impl.ssd)
+            mix = mamba_mod.mamba_forward(p["mamba"], hn, cfg, self.impl.ssd,
+                                          rules=self.rules)
         h = h + mix
         if self.cross:
             hx = apply_norm(p["norm_x"], h, cfg.norm)
             h = h + attn_mod.attention(p["cross"], hx, cfg, causal=False,
-                                       x_kv=enc, use_rope=False, impl="xla")
+                                       x_kv=enc, use_rope=False, impl="xla",
+                                       rules=self.rules)
         return self._ffn_apply(p, h, with_aux=True)
 
     def prefill(self, p: dict, h: torch.Tensor, *,
@@ -187,13 +235,14 @@ class Block:
         """Full-sequence apply that also emits this layer's decode cache.
         pad_to: allocate this many cache slots (> L leaves room to decode)."""
         cfg = self.cfg
+        p = gather_fsdp(p, self.rules)
         L = h.shape[1]
         cache: dict[str, torch.Tensor] = {}
         hn = apply_norm(p["norm1"], h, cfg.norm)
         if self.mixer == "attn":
             mix, (ks, vs) = attn_mod.attention(
                 p["attn"], hn, cfg, causal=self.causal, window=cfg.window,
-                impl=self.impl.attn, return_kv=True)
+                impl=self.impl.attn, return_kv=True, rules=self.rules)
             S_tot = max(pad_to, L)
             S = min(S_tot, cfg.window) if cfg.window > 0 else S_tot
             if cfg.window > 0:
@@ -211,14 +260,15 @@ class Block:
             h = h + mix
         else:
             mix, (conv_tail, S_state) = mamba_mod.mamba_forward(
-                p["mamba"], hn, cfg, self.impl.ssd, return_state=True)
+                p["mamba"], hn, cfg, self.impl.ssd, return_state=True,
+                rules=self.rules)
             cache["conv"], cache["ssm"] = conv_tail, S_state
             h = h + mix
         if self.cross:
             hx = apply_norm(p["norm_x"], h, cfg.norm)
             mix, (xk, xv) = attn_mod.attention(
                 p["cross"], hx, cfg, causal=False, x_kv=enc, use_rope=False,
-                impl="xla", return_kv=True)
+                impl="xla", return_kv=True, rules=self.rules)
             cache["xk"], cache["xv"] = xk, xv
             h = h + mix
         h, _ = self._ffn_apply(p, h)
@@ -229,12 +279,13 @@ class Block:
         """One-token apply. h: (B, 1, d).  The KV cache is written in
         place (see ``attention.decode_attention``)."""
         cfg = self.cfg
+        p = gather_fsdp(p, self.rules)
         new_cache = dict(cache)
         hn = apply_norm(p["norm1"], h, cfg.norm)
         if self.mixer == "attn":
             mix, k2, v2 = attn_mod.decode_attention(
                 p["attn"], hn, cache["k"], cache["v"], cache_len, cfg,
-                window=cfg.window)
+                window=cfg.window, rules=self.rules)
             new_cache["k"], new_cache["v"] = k2, v2
         else:
             mix, conv2, ssm2 = mamba_mod.mamba_decode_step(
@@ -244,7 +295,7 @@ class Block:
         if self.cross:
             hx = apply_norm(p["norm_x"], h, cfg.norm)
             h = h + attn_mod.cross_decode(p["cross"], hx, cache["xk"],
-                                          cache["xv"], cfg)
+                                          cache["xv"], cfg, rules=self.rules)
         h, _ = self._ffn_apply(p, h)
         return h, new_cache
 
@@ -267,15 +318,20 @@ class LM:
     """Decoder LM / enc-dec wrapper over per-layer Block stacks.
 
     ``device`` (default ``"cuda"``) is where ``init`` and ``init_cache``
-    allocate; a CUDA device without CUDA raises (pass ``device="cpu"``)."""
+    allocate; a CUDA device without CUDA raises (pass ``device="cpu"``).
+    ``rules`` name the sharding of activations (``with_logical_constraint``,
+    which acts on DTensors only) and are the default of ``param_specs`` /
+    ``cache_specs``."""
 
     def __init__(self, cfg: ModelConfig, impl: ModelImpl | None = None, *,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 rules: AxisRules | None = None):
         self.cfg = cfg
         self.impl = impl or ModelImpl()
         self.device = _resolve_device(device, "LM")
+        self.rules = rules
         fam = cfg.family
-        mk = functools.partial(Block, cfg, self.impl)
+        mk = functools.partial(Block, cfg, self.impl, rules=rules)
         if fam in ("dense", "vlm"):
             self.blocks = [mk(mixer="attn", ffn="mlp")]
             self.n_stack = cfg.num_layers
@@ -331,12 +387,38 @@ class LM:
             }
         return sch
 
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int = 0, mesh=None) -> dict:
         """Random parameters on ``self.device`` from a generator seeded
-        with ``seed`` (the reference's std rule; not its random numbers)."""
+        with ``seed`` (the reference's std rule; not its random numbers).
+        Given ``mesh`` (every rank calls this), each leaf becomes a DTensor
+        placed by its sanitized spec under ``self.rules`` as soon as it is
+        drawn, and its full copy is freed: a rank never holds more than its
+        shards and one full leaf, as the reference's ``jit(init,
+        out_shardings=...)`` never does.  The values are the unsharded
+        init's: every rank draws the same stream and keeps its own part."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return init_from_schema(gen, self.schema(), self.device)
+        if mesh is None:
+            return init_from_schema(gen, self.schema(), self.device)
+        from torch.distributed.tensor import distribute_tensor
+
+        def place(leaf: torch.Tensor, s: ParamSpec):
+            spec = sanitize_spec(logical_spec(s.logical, self.rules, mesh),
+                                 s.shape, mesh)
+            return distribute_tensor(leaf, mesh, placements(spec, mesh),
+                                     src_data_rank=None)
+
+        return init_from_schema(gen, self.schema(), self.device, place)
+
+    def abstract_params(self) -> dict:
+        return abstract_from_schema(self.schema())
+
+    def param_specs(self, rules: AxisRules | None = None, mesh=None) -> dict:
+        """Specs of every parameter leaf.  The reference stacks layers
+        under a leading ``"layers"`` dim (never sharded); here each layer
+        is its own entry, so a leaf's spec is the reference's without that
+        first ``None``."""
+        return specs_from_schema(self.schema(), rules or self.rules, mesh)
 
     def param_count(self) -> int:
         return param_count(self.schema())
@@ -366,11 +448,14 @@ class LM:
         h = embed_apply(params["embed"], tokens).to(self.cfg.dtype)
         if self.cfg.family == "vlm" and patch_embeds is not None:
             h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
-        return h
+        return with_logical_constraint(h, ("batch", "seq", "embed_act"),
+                                       self.rules)
 
     def _unembed(self, params, h):
         table = params.get("unembed", params["embed"]["table"])
-        return unembed_apply(table, h, self.cfg.vocab_size)
+        logits = unembed_apply(table, h, self.cfg.vocab_size)
+        return with_logical_constraint(logits, ("batch", "seq", "vocab"),
+                                       self.rules)
 
     # ----------------------------------------------------------- encoder ----
     def _encode(self, params, audio_frames):
@@ -425,8 +510,10 @@ class LM:
 
         def xent(hc, lc):
             logits = unembed_apply(table, hc, cfg.vocab_size)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+            logits = with_logical_constraint(logits, ("batch", "seq", "vocab"),
+                                             self.rules)
+            lse = _logsumexp(logits)
+            gold = _pick_last(logits, lc)
             return torch.sum(lse - gold)
 
         C, L = self.impl.loss_chunk, h.shape[1]
@@ -443,6 +530,16 @@ class LM:
     def cache_schema(self, B: int, S: int) -> dict:
         return {"blocks": [self._stack_entry(
             lambda b: b.cache_schema(B, S)) for _ in range(self.n_stack)]}
+
+    def abstract_cache(self, B: int, S: int) -> dict:
+        """The cache tree on the ``meta`` device, without ``len`` (a Python
+        int here, a 0-d leaf in the reference)."""
+        return abstract_from_schema(self.cache_schema(B, S))
+
+    def cache_specs(self, B: int, S: int, rules: AxisRules | None = None,
+                    mesh=None) -> dict:
+        return specs_from_schema(self.cache_schema(B, S), rules or self.rules,
+                                 mesh)
 
     def init_cache(self, B: int, S: int) -> dict:
         """Zero caches on ``self.device``; ``len`` (tokens already in the

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, rmsnorm
+from repro_torch.sharding.specs import AxisRules, with_logical_constraint
 
 
 def mamba_dims(cfg: ModelConfig) -> dict[str, int]:
@@ -46,10 +47,13 @@ def mamba_schema(cfg: ModelConfig) -> dict:
     }
 
 
-def _split_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _split_proj(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                rules: AxisRules | None = None):
     dims = mamba_dims(cfg)
     di, N = dims["d_inner"], dims["N"]
-    zxbcdt = x @ p["in_proj"]
+    # z, x, B, C and dt are slices of one projection: split by batch only
+    zxbcdt = with_logical_constraint(x @ p["in_proj"], ("batch", "seq", None),
+                                     rules)
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + di + 2 * N]
     dt = zxbcdt[..., di + di + 2 * N:]
@@ -136,21 +140,24 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   impl: str = "kernel",
                   conv_state: torch.Tensor | None = None,
                   ssm_state: torch.Tensor | None = None,
-                  return_state: bool = False):
+                  return_state: bool = False,
+                  rules: AxisRules | None = None):
     """Full-sequence mamba mixer. x: (B, L, d) -> (B, L, d)."""
     dims = mamba_dims(cfg)
     di, H, P, N = dims["d_inner"], dims["H"], dims["P"], dims["N"]
     B, L, _ = x.shape
-    z, xBC_raw, dt = _split_proj(p, x, cfg)
+    z, xBC_raw, dt = _split_proj(p, x, cfg, rules)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"], conv_state)
     xs, Bs, Cs = xBC[..., :di], xBC[..., di:di + N], xBC[..., di + N:]
     xh = xs.reshape(B, L, H, P)
+    xh = with_logical_constraint(xh, ("batch", "seq", "ssm_inner", None), rules)
     A = -torch.exp(p["A_log"].float())
     y, S = ssd_chunked(xh, dt, A, Bs, Cs, cfg.ssm_chunk, ssm_state, impl)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, L, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
-    out = y @ p["out_proj"]
+    out = with_logical_constraint(y @ p["out_proj"],
+                                  ("batch", "seq", "embed_act"), rules)
     if return_state:
         # conv state for prefill->decode handoff: last K-1 *raw* conv inputs
         K = cfg.ssm_conv

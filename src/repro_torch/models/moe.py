@@ -10,12 +10,15 @@ and `router_topk` in plain torch.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, activation_fn
+from repro_torch.sharding.specs import AxisRules, with_logical_constraint
 
 NEG_INF = -1e30
 
@@ -30,6 +33,14 @@ def moe_schema(cfg: ModelConfig) -> dict:
         "w_up": ParamSpec((E, d, Ff), ("experts", "embed", "ffn"), dt),
         "w_down": ParamSpec((E, Ff, d), ("experts", "ffn", "embed"), dt),
     }
+
+
+def router_logits(p: dict, x: torch.Tensor, rules: AxisRules | None = None
+                  ) -> torch.Tensor:
+    """x (B, L, d) -> f32 router logits (B, L, E), split by batch alone
+    (top-k and the aux loss index along the experts and flatten B, L)."""
+    return with_logical_constraint(x.float() @ p["router"],
+                                   ("batch", "seq", None), rules)
 
 
 def router_topk(logits: torch.Tensor, k: int
@@ -67,7 +78,8 @@ def _expert_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              impl: str = "fused") -> torch.Tensor:
+              impl: str = "fused", *, rules: AxisRules | None = None
+              ) -> torch.Tensor:
     """x: (B, L, d) -> (B, L, d).  B is the dispatch group dim."""
     B, L, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -79,7 +91,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         weights = weights.reshape(B, L, k)
         experts = experts.reshape(B, L, k).long()
     else:
-        logits = x.float() @ p["router"]                      # (B, L, E)
+        logits = router_logits(p, x, rules)                   # (B, L, E)
         weights, experts = router_topk(logits, k)             # (B, L, k)
 
     # position of each (token, choice) in its expert's buffer, per group
@@ -92,8 +104,53 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     weights = weights * keep.to(weights.dtype)
     pos = torch.where(keep, pos, cap - 1)  # clamp; dropped tokens masked anyway
 
+    act = activation_fn(cfg.activation)
+    args = (x, weights, experts, pos, keep, p["w_gate"], p["w_up"], p["w_down"])
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    if not isinstance(x, DTensor):
+        return _experts_ffn(act, cap, None, *args).to(x.dtype)
+    # experts sharded over a mesh axis: each rank dispatches its tokens
+    # (whole on that axis) to its own experts only, and the ranks' partial
+    # outputs are summed (expert parallelism; the reference leaves this to
+    # its compiler)
+    mesh = x.device_mesh
+    w_pl = list(p["w_gate"].placements)
+    ax = next((i for i, pl in enumerate(w_pl) if pl.is_shard(0)), None)
+    e0 = None if ax is None else mesh.get_local_rank(ax) * (E // mesh.size(ax))
+    act_pl = [Replicate() if i == ax else pl for i, pl in enumerate(x.placements)]
+    out_pl = [Partial() if i == ax else pl for i, pl in enumerate(act_pl)]
+    # x and the routing weights reach only this rank's experts, and the
+    # expert weights see only this rank's tokens: their gradients are
+    # partial sums, over the experts' axis and the token-split axes
+    w_grad = [Partial() if not pl.is_shard() and act_pl[i].is_shard() else pl
+              for i, pl in enumerate(w_pl)]
+    out = local_map(functools.partial(_experts_ffn, act, cap, e0),
+                    out_placements=out_pl,
+                    in_placements=(act_pl,) * 5 + (w_pl,) * 3,
+                    in_grad_placements=(out_pl,) * 2 + (act_pl,) * 3
+                    + (w_grad,) * 3,
+                    device_mesh=mesh, redistribute_inputs=True)(*args)
+    out = with_logical_constraint(out, ("batch", "seq", "embed_act"), rules)
+    return out.to(x.dtype)
+
+
+def _experts_ffn(act, cap: int, e0: int | None, x, weights, experts, pos,
+                 keep, w_gate, w_up, w_down) -> torch.Tensor:
+    """Dispatch, expert FFN and weighted combine: f32 (B, L, d).  With
+    ``e0`` (experts sharded) ``w_*`` hold experts [e0, e0 + E') and the
+    result is those experts' share only."""
+    B, L, d = x.shape
+    k = experts.shape[-1]
+    El = w_gate.shape[0]
+    if e0 is not None:
+        mine = (experts >= e0) & (experts < e0 + El)
+        keep = keep & mine
+        weights = weights * mine.to(weights.dtype)
+        experts = torch.where(mine, experts - e0, 0)
+
     # scatter-add tokens into expert buffers, one scatter per routing choice
-    buf = x.new_zeros((B, E, cap, d))
+    buf = x.new_zeros((B, El, cap, d))
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, L)
     for j in range(k):
         contrib = x * keep[:, :, j, None].to(x.dtype)
@@ -101,17 +158,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        accumulate=True)
 
     # expert FFN: batched over (group, expert)
-    act = activation_fn(cfg.activation)
-    hidden = (act(_expert_matmul(buf, p["w_gate"]))
-              * _expert_matmul(buf, p["w_up"]))
-    out_buf = _expert_matmul(hidden, p["w_down"])
+    hidden = act(_expert_matmul(buf, w_gate)) * _expert_matmul(buf, w_up)
+    out_buf = _expert_matmul(hidden, w_down)
 
     # gather back + weighted combine
     out = torch.zeros((B, L, d), dtype=torch.float32, device=x.device)
     for j in range(k):
         gathered = out_buf[b_idx, experts[:, :, j], pos[:, :, j]]   # (B, L, d)
         out = out + gathered.float() * weights[:, :, j, None]
-    return out.to(x.dtype)
+    return out
 
 
 def moe_aux_loss(router_logits: torch.Tensor, experts: torch.Tensor,

@@ -423,10 +423,12 @@ def test_train_loop_resumes_as_if_uninterrupted(tmp_path, monkeypatch):
             assert torch.equal(a, b), (name, path)
 
 
-def test_train_cli(capsys, tmp_path):
+def test_train_cli(capsys, tmp_path, monkeypatch):
     """``python -m repro_torch.launch.train`` on the CPU: trains, then
-    resumes from its checkpoint; it defaults to CUDA (raising without it)
-    and refuses the meshes it does not have."""
+    resumes from its checkpoint; it defaults to CUDA (raising without it);
+    ``--production-mesh`` / ``--multi-pod`` join the job's process group
+    (here a world of one rank over gloo) and raise where it is smaller than
+    the mesh, leaving no group behind."""
     argv = ["--arch", ARCH, "--smoke", "--steps", "4", "--batch", "2",
             "--seq", "16", "--device", "cpu", "--ckpt-dir", str(tmp_path),
             "--ckpt-interval", "2"]
@@ -437,9 +439,19 @@ def test_train_cli(capsys, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_mod.main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
+    import socket
+
+    import torch.distributed as dist
+    for flag, ranks in (("--production-mesh", 256), ("--multi-pod", 512)):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                     ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+            monkeypatch.setenv(k, v)
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
             train_mod.main(["--arch", ARCH, "--smoke", "--device", "cpu", flag])
+        assert not dist.is_initialized()
 
 
 # --------------------------------------------------------------- roofline ---
