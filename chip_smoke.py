@@ -150,7 +150,20 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     policy-MLP kernel's launches, the first 200 head and 200 tail calls
     recomputed by the plain version as phase 5 does, a 96-job platform
     schedule on the card equal to the CPU's, and the dry run of
-    ``granite-moe-1b-a400m`` x ``train_4k`` on the fake 16x16 mesh.
+    ``granite-moe-1b-a400m`` x ``train_4k`` on the fake 16x16 mesh;
+26. paper tables: the port's eight paper and stream benches
+    (``benchmarks_torch``: Fig 6, Fig 10, Tables 6-9 with Figs 11-17 and
+    Fig 17 at its quick 2,048 jobs, then ``bench_prediction`` and
+    ``bench_rl_streaming`` at smoke size) in this process with every agent
+    and predictor on the card, each agent trained on 2 batch pairs of 128
+    (cut from the quick scale's 60) and evaluated on 1 batch (from 4),
+    cached under the git-ignored ``build/chip_smoke_agents/``: every bench
+    returns rows, every row finite, policy_mlp launches at least the RL
+    decisions (``PPOAgent.act`` calls), predict_mlp launches in every
+    assisted arm and none in a blind one; then the cached pro, naive and
+    inspector philly agents evaluated on the card and on the CPU: the same
+    greedy decisions up to the first near-tie (two live logits within
+    1e-4) and, where all agree, the same ``evaluate()``.
 
 Then one JSON line describing all five kernels (times, launches, bounds;
 ``launches_by_path`` gives each kernel's launches on each path it runs
@@ -2811,6 +2824,162 @@ def platform_phase() -> dict:
     return json.loads(out.read_text())
 
 
+# phase 26: the paper's tables (benchmarks_torch) at a cut scale
+PAPER_TRAIN_BATCHES = 2          # batch pairs of 128 per agent (quick: 60)
+PAPER_EVAL_BATCHES = 1           # evaluation batches per eval_pair (quick: 4)
+PAPER_AGENTS = ROOT / "build" / "chip_smoke_agents"
+PAPER_BENCHES = ("variability", "naive", "util", "transfer", "qssf",
+                 "policies", "prediction", "rl_streaming")
+PAPER_VARIANTS = ("pro", "naive", "inspector")
+
+
+def csv_row_finite(line: str) -> bool:
+    """A ``name,us_per_call,derived`` row whose numbers are all finite."""
+    import math
+    import re
+    _, us, derived = line.split(",", 2)
+    nums = re.findall(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:e[-+]?\d+)?|nan|inf",
+                      derived.lower())
+    return math.isfinite(float(us)) and all(math.isfinite(float(x))
+                                            for x in nums)
+
+
+def greedy_tap(log: list):
+    """A ``greedy_step`` that also logs (the order of the live rows, the
+    smallest gap between two live logits) of every greedy decision."""
+    import numpy as np
+    from repro_torch.core import agent as agent_mod
+    real = agent_mod.greedy_step
+
+    def tapped(net, ov, mask):
+        order = real(net, ov, mask)
+        logits = agent_mod.actor_logits(net, ov, mask).detach().cpu().numpy()
+        live = int((mask > 0).sum())
+        gaps = -np.diff(logits[order[:live]].astype(np.float64))
+        log.append((order[:live].tolist(),
+                    float(gaps.min()) if gaps.size else float("inf")))
+        return order
+    return tapped
+
+
+def paper_tables_phase(dev) -> dict:
+    """26. the eight paper and stream benches of ``benchmarks_torch`` in
+    this process on the card, then one cached agent per variant evaluated
+    on the card and on the CPU."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    os.environ.update({
+        "REPRO_BENCH_TRAIN_BATCHES": str(PAPER_TRAIN_BATCHES),
+        "REPRO_BENCH_EVAL_BATCHES": str(PAPER_EVAL_BATCHES),
+        "REPRO_BENCH_DEVICE": dev.type,
+        "REPRO_BENCH_PREDICT_JSON": str(ROOT / "build" /
+                                        "chip_smoke_BENCH_prediction.json"),
+        "REPRO_BENCH_RL_JSON": str(ROOT / "build" /
+                                   "chip_smoke_BENCH_rl_streaming.json")})
+    import benchmarks_torch
+    check(Path(benchmarks_torch.__file__).resolve().is_relative_to(ROOT),
+          f"benchmarks_torch imported from {benchmarks_torch.__file__}")
+    from benchmarks_torch import bench_prediction, common
+    from benchmarks_torch.run import SPECIAL, Split
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    check((common.TRAIN_BATCHES, common.EVAL_BATCHES) ==
+          (PAPER_TRAIN_BATCHES, PAPER_EVAL_BATCHES),
+          "benchmarks_torch.common was imported before phase 26's knobs")
+    shutil.rmtree(PAPER_AGENTS, ignore_errors=True)
+    common.AGENTS = str(PAPER_AGENTS)
+
+    # the assisted arms' launches, per stream
+    by_arm: dict[str, int] = {}
+    real_stream = bench_prediction.stream_once
+
+    def counted_stream(scenario, num_jobs, assisted):
+        before = qm.launches
+        out = real_stream(scenario, num_jobs, assisted)
+        by_arm[f"{scenario}/{'assisted' if assisted else 'blind'}"] = \
+            qm.launches - before
+        return out
+
+    bench_prediction.stream_once = counted_stream
+    rows: list[str] = []
+    splits = {}
+    pm.launches = qm.launches = 0
+    t_all = time.perf_counter()
+    try:
+        for name in PAPER_BENCHES:
+            mod = __import__(SPECIAL.get(name, f"benchmarks_torch.bench_{name}"),
+                             fromlist=["run"])
+            n_rows = len(rows)
+            with Split() as split:
+                if name in ("prediction", "rl_streaming"):
+                    mod.run(rows, smoke=True)
+                else:
+                    mod.run(rows)
+                torch.cuda.synchronize()
+            splits[name] = split
+            check(len(rows) > n_rows, f"paper tables: {name} gave no rows")
+            print(f"paper tables: {name}: {split.line()}", flush=True)
+    finally:
+        bench_prediction.stream_once = real_stream
+    wall = time.perf_counter() - t_all
+    launches = {"policy_mlp": pm.launches, "predict_mlp": qm.launches}
+    decisions = sum(sp.calls["act"] for sp in splits.values())
+    bad = [r for r in rows if not csv_row_finite(r)]
+    check(not bad, f"paper tables: rows not finite: {bad}")
+    check(decisions > 0 and launches["policy_mlp"] >= decisions,
+          f"paper tables: policy_mlp launches {launches['policy_mlp']} < "
+          f"RL decisions {decisions}")
+    check(all(n > 0 for k, n in by_arm.items() if k.endswith("/assisted"))
+          and all(n == 0 for k, n in by_arm.items() if k.endswith("/blind"))
+          and len(by_arm) == 2 * len(bench_prediction.SCENARIOS),
+          f"paper tables: predict_mlp launches by arm {by_arm}")
+    for r in rows:
+        print(f"paper tables: row {r}")
+    print(f"paper tables: {len(PAPER_BENCHES)} benches, {len(rows)} rows, all "
+          f"finite, in {wall:.3f} s; {decisions} RL decisions, launches "
+          f"{launches}; predict_mlp by arm {by_arm}", flush=True)
+
+    # one cached agent per variant: the card's evaluate() against the CPU's
+    real_greedy = agent_mod.greedy_step
+    for variant in PAPER_VARIANTS:
+        runs = {}
+        for device in (dev, "cpu"):
+            log: list = []
+            tr = common.get_trainer("philly", "fcfs", "wait", variant,
+                                    device=device)
+            agent_mod.greedy_step = greedy_tap(log)
+            try:
+                ev = tr.evaluate(num_batches=common.EVAL_BATCHES,
+                                 batch_size=common.BATCH_SIZE)
+            finally:
+                agent_mod.greedy_step = real_greedy
+            runs[str(device)] = (ev, log)
+        (ev_c, log_c), (ev_h, log_h) = runs[str(dev)], runs["cpu"]
+        n = min(len(log_c), len(log_h))
+        first_tie = next((i for i in range(n)
+                          if min(log_c[i][1], log_h[i][1]) < NEAR_TIE), n)
+        first_diff = next((i for i in range(n) if log_c[i][0] != log_h[i][0]),
+                          None)
+        check(first_diff is None or first_diff >= first_tie,
+              f"paper tables {variant}: decision {first_diff} differs before "
+              f"the first near-tie ({first_tie})")
+        if first_diff is None:
+            check(len(log_c) == len(log_h) and ev_c == ev_h,
+                  f"paper tables {variant}: the same decisions but card "
+                  f"{ev_c} != CPU {ev_h}")
+        tie = f"first near-tie (gap < {NEAR_TIE}) at decision {first_tie}" \
+            if first_tie < n else f"no near-tie in {n} decisions"
+        same = "equal" if ev_c == ev_h else f"differ (CPU {ev_h})"
+        print(f"paper tables: philly/fcfs/wait/{variant} evaluate on the card "
+              f"{ev_c}: {len(log_c)} greedy decisions, "
+              f"{'all equal' if first_diff is None else f'first differ at {first_diff}'}"
+              f" to the CPU's; {tie}; evaluate() {same}", flush=True)
+    shutil.rmtree(PAPER_AGENTS, ignore_errors=True)
+    return launches
+
+
 
 def main() -> int:
     import numpy as np
@@ -3122,7 +3291,12 @@ def main() -> int:
     t0 = time.perf_counter()
     platform = platform_phase()
     print(f"platform: phase 25 took {time.perf_counter() - t0:.3f} s")
-    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - T_START:.3f} s")
+
+    # ------------------------------------------------ 26. paper tables --
+    t0 = time.perf_counter()
+    paper = paper_tables_phase(dev)
+    print(f"paper tables: phase 26 took {time.perf_counter() - t0:.3f} s")
+    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - T_START:.3f} s")
 
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
@@ -3139,7 +3313,8 @@ def main() -> int:
                              "fleet": fleet["policy_mlp"],
                              "fleet-check": fleet_check["policy_mlp"],
                              "control-plane": control["policy_mlp"],
-                             f"platform-{PLATFORM_JOBS}": platform["launches"]},
+                             f"platform-{PLATFORM_JOBS}": platform["launches"],
+                             "paper-tables": paper["policy_mlp"]},
         "max_abs_err": max(max_err, platform["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3155,7 +3330,8 @@ def main() -> int:
         "launches_by_path": {"mispredict-storm-10000": q["launches"],
                              "fleet": fleet["launches"],
                              "fleet-check": fleet_check["predict_mlp"],
-                             "control-plane": control["predict_mlp"]},
+                             "control-plane": control["predict_mlp"],
+                             "paper-tables": paper["predict_mlp"]},
         "max_abs_err": max(q_err, q["max_abs_err"], fleet["max_abs_err"]),
         "ms": q_ms,
         "plain_ms": q_plain_ms,

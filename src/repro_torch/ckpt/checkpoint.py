@@ -16,16 +16,19 @@ the ``zstandard`` package and raises without it, as the reference does.
 Leaves are compressed and decompressed on a thread pool (zlib releases the
 interpreter lock).
 
-Async save: ``CheckpointManager.maybe_save`` copies every leaf to host
-memory before returning — a copy even of CPU tensors, which the train step
-updates in place — and a worker thread writes the copy.
+Async save: ``CheckpointManager.maybe_save`` copies every leaf to the
+writer's host memory before returning — a copy even of CPU tensors, which
+the train step updates in place — and a worker thread writes the copy.
 
-Sharded trees (DTensor leaves): every rank gathers each leaf's full array
-(``full_tensor``, a collective) and rank 0 alone writes, so the files are
-those of the same values saved unsharded.  ``load_checkpoint(...,
-mesh=..., spec_tree=...)`` reads the full arrays on every rank and places
-each by its spec (``distribute_tensor``): a checkpoint restores onto any
-mesh, whatever mesh wrote it.
+Sharded trees (DTensor leaves): every rank sends its local shard of each
+leaf to rank 0 (``gather``, padded to the largest shard), and rank 0 alone
+places the shards into the full array on the host and writes, so the
+files are those of the same values saved unsharded; no other rank copies
+anything to the host.  ``load_checkpoint(..., mesh=..., spec_tree=...)``
+inflates each leaf on the host, cuts out the rank's own shard there and
+moves only that shard to the device (``DTensor.from_local``): a checkpoint
+restores onto any mesh, whatever mesh wrote it, and the read threads hold
+at most ``_WORKERS`` full leaves at a time.
 """
 from __future__ import annotations
 
@@ -47,19 +50,54 @@ CODEC = "zlib"
 # codec line of chip_smoke.py's phase 22 measures both on the card's host).
 ZLIB_LEVEL = 0
 _WORKERS = min(8, os.cpu_count() or 1)
+# bytes a read thread takes from a leaf's file (and inflates) at a time
+_CHUNK = 1 << 20
 
 
-def _decompress(blob: bytes, codec: str) -> bytes:
+def _inflate(f, codec: str, out: np.ndarray) -> None:
+    """Inflate the open leaf file ``f`` into ``out`` (a uint8 array of the
+    leaf's size), reading at most ``_CHUNK`` bytes at a time and asking for
+    no more inflated bytes than ``out`` has room for."""
     if codec == "zstd":
         try:
             import zstandard
         except ImportError:
             raise RuntimeError("checkpoint was written with zstd; install the "
                                "[compress] extra") from None
-        return zstandard.ZstdDecompressor().decompress(blob)
-    if codec == "zlib":
-        return zlib.decompress(blob)
-    raise ValueError(f"unknown checkpoint codec {codec!r}")
+        reader = zstandard.ZstdDecompressor().stream_reader(f)
+
+        def take(n: int) -> bytes:
+            return reader.read(n)
+    elif codec == "zlib":
+        z = zlib.decompressobj()
+        buf = bytearray(min(_CHUNK, f.seek(0, os.SEEK_END)))
+        f.seek(0)
+        data = memoryview(b"")
+
+        def take(n: int) -> bytes:
+            """Up to ``n`` inflated bytes; empty at the end."""
+            nonlocal data
+            while True:
+                if data:
+                    piece = z.decompress(data, n)
+                    data = memoryview(z.unconsumed_tail)
+                    if piece:
+                        return piece
+                elif k := f.readinto(buf):
+                    data = memoryview(buf)[:k]
+                else:
+                    return z.flush()
+    else:
+        raise ValueError(f"unknown checkpoint codec {codec!r}")
+    pos = 0
+    # one byte more than the room left, so that a leaf too long shows
+    while piece := take(min(_CHUNK, out.size - pos + 1)):
+        if pos + len(piece) > out.size:
+            raise ValueError(f"leaf inflates past {out.size} bytes")
+        out[pos:pos + len(piece)] = np.frombuffer(piece, np.uint8)
+        pos += len(piece)
+    if pos != out.size:
+        raise ValueError(f"leaf inflates to {pos} of {out.size} bytes")
 
 
 def _map_keyed(fn: Callable[[str, Any], Any], tree, prefix: tuple = ()) -> Any:
@@ -88,24 +126,99 @@ def _at(tree, key: str):
     return tree
 
 
-def _host_copy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """(a host copy of the tensor's bytes as numpy, its dtype name); a
-    DTensor's full array, gathered on every rank."""
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's numpy view (bf16 as its raw 16-bit words)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _shard_slices(shape, mesh_shape, coord, placements) -> tuple:
+    """The slices of a ``shape`` array that the rank at mesh coordinate
+    ``coord`` holds under ``placements``: DTensor's ``Shard`` splits a dim
+    as ``torch.chunk`` does (pieces of ceil(n / ranks), the last ones short
+    or empty), over the mesh dims in mesh order."""
+    start, size = [0] * len(shape), list(shape)
+    for mdim, p in enumerate(placements):
+        if not p.is_shard():
+            continue
+        if type(p).__name__ != "Shard":
+            raise NotImplementedError(f"checkpoint of a {p} placement")
+        d, n = p.dim, mesh_shape[mdim]
+        step = -(-size[d] // n)
+        lo = min(coord[mdim] * step, size[d])
+        start[d] += lo
+        size[d] = min(lo + step, size[d]) - lo
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+
+def _gather_dtensor(t, writer: bool) -> np.ndarray | None:
+    """Rank 0 gets the DTensor's full array on the host, put together from
+    every rank's local shard; other ranks send theirs and get ``None``.
+    A collective over the default group, which the mesh must span."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    if any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                           else p for p in t.placements])
+    mesh = t.device_mesh
+    ranks = mesh.mesh.cpu().numpy()
+    world = dist.get_world_size()
+    if ranks.size != world:
+        raise ValueError(f"a mesh of {ranks.size} ranks in a world of {world}")
+    shape, mesh_shape = tuple(t.shape), tuple(ranks.shape)
+    coords = {int(ranks[c]): c for c in np.ndindex(*ranks.shape)}
+    slices = [_shard_slices(shape, mesh_shape, coords[r], t.placements)
+              for r in range(world)]
+    item = t.element_size()
+    counts = [item * int(np.prod([s.stop - s.start for s in sl]))
+              for sl in slices]
+    # the shard's bytes, padded to the largest shard's (gloo takes neither
+    # bf16 nor int16, and every dtype is bytes)
+    flat = t.to_local().reshape(-1).view(torch.uint8)
+    most = max(counts)
+    if flat.numel() != most:
+        flat = torch.cat([flat, flat.new_zeros(most - flat.numel())])
+    pieces = [torch.empty_like(flat) for _ in range(world)] if writer \
+        else None
+    dist.gather(flat, pieces, dst=0)
+    if not writer:
+        return None
+    full = np.empty(shape, _numpy(torch.empty(0, dtype=t.dtype)).dtype)
+    for sl, n, piece in zip(slices, counts, pieces):
+        block = piece[:n].cpu().numpy().view(full.dtype)
+        full[sl] = block.reshape([s.stop - s.start for s in sl])
+    return full
+
+
+def _host_copy(t: torch.Tensor, writer: bool
+               ) -> tuple[np.ndarray, str] | None:
+    """(a host copy of the tensor's bytes as numpy, its dtype name) on the
+    writer; for a DTensor a collective, after which other ranks get
+    ``None``."""
     from torch.distributed.tensor import DTensor
     if isinstance(t, DTensor):
-        t = t.full_tensor()
-    t = t.detach().to("cpu", copy=True)
-    name = str(t.dtype).removeprefix("torch.")
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), name
-    return t.numpy(), name
+        full = _gather_dtensor(t.detach(), writer)
+        return None if full is None else (full, _dtype_name(t))
+    if not writer:
+        return None
+    return _numpy(t.detach().to("cpu", copy=True)), _dtype_name(t)
 
 
 def _snapshot(tree) -> dict[str, tuple[np.ndarray, str]]:
+    """The writer's host copy of every leaf, by key; on other ranks (which
+    take part in each DTensor's gather) an empty dict."""
+    writer = _is_writer()
     flat: dict[str, tuple[np.ndarray, str]] = {}
 
     def take(key, leaf):
-        flat[key] = _host_copy(leaf)
+        got = _host_copy(leaf, writer)
+        if got is not None:
+            flat[key] = got
 
     _map_keyed(take, tree)
     return flat
@@ -161,16 +274,20 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _read_leaf(d: str, meta: dict, codec: str) -> torch.Tensor:
+def _read_leaf(d: str, meta: dict, codec: str,
+               slices: tuple | None = None) -> np.ndarray:
+    """The leaf as numpy (bf16 as uint16 words), or, given ``slices``, a
+    contiguous copy of that part of it: the full leaf lives only inside
+    this call."""
+    dtype = np.dtype(np.uint16 if meta["dtype"] == "bfloat16"
+                     else meta["dtype"])
+    arr = np.empty(meta["shape"], dtype)
     with open(os.path.join(d, meta["file"]), "rb") as f:
-        raw = _decompress(f.read(), codec)
-    if meta["dtype"] == "bfloat16":
-        arr = np.frombuffer(raw, dtype=np.uint16).copy()
-        t = torch.from_numpy(arr).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.frombuffer(raw, dtype=np.dtype(meta["dtype"]))
-                             .copy())
-    return t.reshape(meta["shape"])
+        _inflate(f, codec, arr.reshape(-1).view(np.uint8))
+    if slices is None or all(s == slice(0, n)
+                             for s, n in zip(slices, arr.shape)):
+        return arr
+    return arr[slices].copy()         # a copy even where the view is contiguous
 
 
 def load_checkpoint(path: str, target_tree, step: int | None = None,
@@ -192,27 +309,45 @@ def load_checkpoint(path: str, target_tree, step: int | None = None,
     codec = manifest.get("codec", "zstd")   # pre-fallback checkpoints: zstd
 
     if mesh is not None:
-        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor import DTensor
 
         from repro_torch.sharding.specs import placements
         if device is None:
             device = mesh.device_type
+        coord = mesh.get_coordinate()
+        mesh_shape = tuple(mesh.shape)
     keys: list[str] = []
     _map_keyed(lambda key, leaf: keys.append(key), target_tree)
     for key in keys:
         if key not in leaves_meta:
             raise KeyError(f"checkpoint missing leaf {key}")
+
+    def read(key):
+        """(this rank's part of the leaf on the host, its placements)."""
+        meta = leaves_meta[key]
+        if mesh is None:
+            return _read_leaf(d, meta, codec), None
+        pl = placements(_at(spec_tree, key), mesh)
+        sl = _shard_slices(meta["shape"], mesh_shape, coord, pl)
+        return _read_leaf(d, meta, codec, sl), pl
+
     with cf.ThreadPoolExecutor(max_workers=_WORKERS) as pool:
-        futs = {key: pool.submit(_read_leaf, d, leaves_meta[key], codec)
-                for key in keys}
+        futs = {key: pool.submit(read, key) for key in keys}
 
         def place(key, leaf):
             dev = leaf.device if device is None else torch.device(device)
-            t = futs[key].result().to(device=dev, dtype=leaf.dtype)
+            arr, pl = futs.pop(key).result()
+            t = torch.from_numpy(arr)
+            if leaves_meta[key]["dtype"] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            t = t.to(device=dev, dtype=leaf.dtype)
             if mesh is None:
                 return t
-            return distribute_tensor(t, mesh,
-                                     placements(_at(spec_tree, key), mesh))
+            shape = leaves_meta[key]["shape"]
+            stride = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+            return DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=torch.Size(shape),
+                                      stride=tuple(stride))
 
         return _map_keyed(place, target_tree), manifest["step"]
 
@@ -229,8 +364,9 @@ class CheckpointManager:
         os.makedirs(path, exist_ok=True)
 
     def maybe_save(self, step: int, tree) -> bool:
-        """At every ``interval``-th step, snapshot ``tree`` (on every rank,
-        for a sharded tree) and write it in the background (rank 0)."""
+        """At every ``interval``-th step, snapshot ``tree`` (every rank takes
+        part in a sharded tree's gathers) and write it in the background
+        (rank 0)."""
         if step % self.interval != 0:
             return False
         self.wait()

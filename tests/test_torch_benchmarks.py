@@ -36,3 +36,10 @@ def test_bench_latency_defaults_to_the_card(capsys):
     with pytest.raises(SystemExit):
         bench.main(["--help"])
     assert "(default cuda)" in capsys.readouterr().out
+
+
+def test_bench_run_defaults_to_the_card(capsys):
+    import benchmarks_torch.run as bench_run
+    with pytest.raises(SystemExit):
+        bench_run.main(["--help"])
+    assert "(default cuda)" in capsys.readouterr().out

@@ -4,8 +4,10 @@ leaves, nested dicts and lists), the manifests are byte for byte the same,
 the port's manifest codec gives ``msgpack``'s bytes and reads them; plus
 the port analogs of ``tests/test_ckpt.py`` (round trip, codec errors,
 atomic commit, retention, restore) and the async snapshot's copy."""
+import io
 import os
 import threading
+import zlib
 
 import jax.numpy as jnp
 import msgpack
@@ -150,13 +152,21 @@ def test_manifest_codec_rejects_what_it_cannot_hold():
 
 
 def test_codec_error_paths():
+    def inflate(blob, codec, size=1):
+        ckpt_mod._inflate(io.BytesIO(blob), codec, np.empty(size, np.uint8))
+
     with pytest.raises(ValueError, match="unknown checkpoint codec"):
-        ckpt_mod._decompress(b"x", "lz4")
+        inflate(b"x", "lz4")
     try:
         import zstandard  # noqa: F401
     except ImportError:
         with pytest.raises(RuntimeError, match="compress"):
-            ckpt_mod._decompress(b"x", "zstd")
+            inflate(b"x", "zstd")
+    blob = zlib.compress(b"abcd", 0)
+    with pytest.raises(ValueError, match="inflates past"):
+        inflate(blob, "zlib", 3)
+    with pytest.raises(ValueError, match="inflates to 4 of 5"):
+        inflate(blob, "zlib", 5)
 
 
 def test_port_imports_no_optional_codec_packages():

@@ -24,6 +24,10 @@ limit) computes everything; the tests read its results:
   unsharded save of the same values, the reference's ``load_checkpoint``
   reads it, and restored onto the 2x2 mesh and onto a 4x1 mesh every
   rank's shards equal ``distribute_tensor``'s bit for bit.
+- Checkpoint memory: on the 2x2 mesh, no rank but the writer copies more
+  than its local shards to the host while it saves, and no rank holds
+  more than its local shards and its read threads' leaves while it
+  restores.
 - Shard identity: each rank's local shard of a few leaves equals the
   reference's ``NamedSharding`` shard for the device at its mesh position
   (computed with 4 fake JAX devices), on the 2x2 mesh and, for a batch
@@ -182,6 +186,42 @@ for m in (mesh, make_host_mesh(model=1, device_type="cpu")):
 res["restore_exact"] = all(exact)
 res["restore_leaves"] = len(exact)
 
+# checkpoint memory on the mesh: the host bytes each rank allocates while
+# it saves and restores train_loop's sharded state (numpy and Python
+# allocations from every thread by tracemalloc, torch storages on this
+# thread by the counter)
+import tracemalloc
+from repro_torch.ckpt import checkpoint as ckpt_mod
+ckpt_mod._WORKERS = 1      # one read thread, whatever the host's cores
+
+def host_peak(fn):
+    tracemalloc.start()
+    counter = CollectiveCounter()
+    with counter:
+        out = fn()
+    peak = tracemalloc.get_traced_memory()[1] + counter.peak_bytes
+    tracemalloc.stop()
+    return out, peak
+
+gran_specs = sharded_specs(LM(get_config("granite-moe-1b-a400m", smoke=True),
+                              impl, device="cpu", rules=DEFAULT_RULES), mesh)
+ck_state = os.path.join(ck, "state")
+_, save_peak = host_peak(lambda: save_checkpoint(ck_state, 1, state))
+(got, _), restore_peak = host_peak(lambda: load_checkpoint(
+    ck_state, state, mesh=mesh,
+    spec_tree={"params": gran_specs[0], "opt": gran_specs[1]}))
+res["ckpt_mem"] = {
+    "save_peak": save_peak, "restore_peak": restore_peak,
+    "local": sum(t.to_local().numel() * t.element_size()
+                 if isinstance(t, DTensor) else t.numel() * t.element_size()
+                 for _, t in tree_leaves(state)),
+    "full": sum(t.numel() * t.element_size() for _, t in tree_leaves(state)),
+    "largest": max(t.numel() * t.element_size() for _, t in tree_leaves(state)),
+    "leaves": sum(1 for _ in tree_leaves(state)),
+    "workers": ckpt_mod._WORKERS, "chunk": ckpt_mod._CHUNK,
+    "equal": all(torch.equal(full(a), full(b)) for (_, a), (_, b) in zip(
+        tree_leaves(got), tree_leaves(state)))}
+
 # shard identity: 2x2 (data, model) and (2, 2, 1) (pod, data, model)
 rng = np.random.default_rng(7)
 arrays = {"table": rng.standard_normal((64, 8)).astype(np.float32),
@@ -285,6 +325,29 @@ def test_train_loop_on_a_mesh_never_holds_the_full_state(session):
         assert bound < m["full"], m
         assert m["peak"] <= bound, m
         assert m["init_equal"]
+
+
+def test_checkpoint_on_a_mesh_copies_only_local_shards(session):
+    """Saving and restoring ``train_loop``'s sharded params and moments on
+    the 2x2 mesh: a rank other than the writer allocates no more host bytes
+    than its local shards while it saves (it sends them to rank 0 and keeps
+    no copy), and every rank's restore stays within its local shards plus
+    what its read thread holds (a full leaf, a chunk read from the file and
+    the chunk inflated, twice while zlib joins its output) plus 4 KiB a leaf
+    for the Python objects of the restored tree, a bound below the full
+    state; the restored values are the saved ones."""
+    _, res = session
+    for rank, r in enumerate(res):
+        m = r["ckpt_mem"]
+        assert m["equal"]
+        assert m["local"] < m["full"], m
+        if rank:
+            assert m["save_peak"] <= m["local"], m
+        threads = m["workers"] * (m["largest"] + 3 * min(m["chunk"],
+                                                         m["largest"]))
+        bound = m["local"] + threads + 4096 * m["leaves"]
+        assert bound < m["full"], m
+        assert m["restore_peak"] <= bound, m
 
 
 def test_sharded_save_is_the_unsharded_save(session):

@@ -217,6 +217,55 @@ for name in ("repro_torch.kernels.policy_mlp", "repro_torch.kernels.predict_mlp"
     assert not bad, bad
 
 
+def test_port_benchmarks_import_neither_jax_nor_repro():
+    """Every module of ``benchmarks_torch`` imported in a fresh interpreter
+    loads no jax*, no repro.* and none of the reference's ``benchmarks``;
+    and no source there imports them at any depth."""
+    code = r"""
+import importlib, pkgutil, sys
+import benchmarks_torch
+names = ["benchmarks_torch"] + [
+    m.name for m in pkgutil.walk_packages(benchmarks_torch.__path__,
+                                          "benchmarks_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "benchmarks")
+             or m.startswith(("jax.", "jaxlib", "repro.", "benchmarks.")))
+print(len(names), bad)
+assert not bad, bad
+for name in ("common", "run", "bench_latency", "bench_variability",
+             "bench_naive_vs_pro", "bench_util", "bench_transfer",
+             "bench_qssf", "bench_policies", "bench_prediction",
+             "bench_rl_streaming"):
+    assert "benchmarks_torch." + name in names, name
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("[]")
+    bad = []
+    root = os.path.join(REPO, "benchmarks_torch")
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            for node in ast.walk(ast.parse(open(path).read(), path)):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                bad += [f"{path}:{node.lineno} {m}" for m in mods
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                               "benchmarks")]
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     """chip_smoke.py drives only the port: its source names no JAX module
     and no module of the JAX package, and with no CUDA card visible it fails
