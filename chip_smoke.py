@@ -390,6 +390,37 @@ def predict_kernel_phase(dev) -> tuple[float, dict]:
     return q_err, q_timings
 
 
+PREDICT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def recording_predict_mlp(real, record: list, on_call=None):
+    """``real`` (``ops.predict_mlp``) that keeps the inputs, weights and
+    outputs of its first CHECK_PREDICTS calls in ``record`` and hands each
+    call's input to ``on_call``."""
+    def tapped(x, params):
+        out = real(x, params)
+        if on_call is not None:
+            on_call(x)
+        if len(record) < CHECK_PREDICTS:
+            record.append((x.clone(), {k: params[k].clone()
+                                       for k in PREDICT_KEYS}, out.clone()))
+        return out
+    return tapped
+
+
+def recorded_predicts_err(record: list) -> float:
+    """The largest |kernel - plain version| over the recorded calls, the
+    plain version on the same inputs and weights."""
+    import torch
+    from repro_torch.kernels.ref import predict_mlp_ref
+    worst = 0.0
+    with torch.no_grad():
+        for x, params, out in record:
+            plain = predict_mlp_ref(x, *(params[k] for k in PREDICT_KEYS))
+            worst = max(worst, (out - plain).abs().max().item())
+    return worst
+
+
 def predict_stream_phase(dev, num_jobs: int) -> dict:
     """Phases 9-10, the slice's main path: a ``num_jobs``-job
     ``mispredict-storm`` stream blind, then with predictor-assisted EASY
@@ -403,10 +434,8 @@ def predict_stream_phase(dev, num_jobs: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops, predict_mlp as qm
-    from repro_torch.kernels.ref import predict_mlp_ref
     from repro_torch.predict import RuntimePredictor
 
-    keys = ("w1", "b1", "w2", "b2", "w3", "b3")
     blind, blind_wall = stream(num_jobs, None)
     pred = RuntimePredictor(assist=True, seed=0, device=dev)
     record: list[tuple[torch.Tensor, dict, torch.Tensor]] = []
@@ -415,15 +444,8 @@ def predict_stream_phase(dev, num_jobs: int) -> dict:
     uploads = [0, None]                      # weight uploads, last copy
     real_predict_mlp = ops.predict_mlp
 
-    def tapped_predict_mlp(x, params):
-        """Counts calls by batch size and keeps the inputs, weights and
-        outputs of the first CHECK_PREDICTS calls for the check."""
-        out = real_predict_mlp(x, params)
+    def by_batch(x):
         by_b[x.shape[0]] = by_b.get(x.shape[0], 0) + 1
-        if len(record) < CHECK_PREDICTS:
-            record.append((x.clone(), {k: params[k].clone() for k in keys},
-                           out.clone()))
-        return out
 
     for name in ("predict_quantiles", "_rows", "_forward", "_device_params",
                  "on_submit", "on_finish"):
@@ -438,7 +460,7 @@ def predict_stream_phase(dev, num_jobs: int) -> dict:
         return out
 
     pred._device_params = counted_params
-    ops.predict_mlp = tapped_predict_mlp
+    ops.predict_mlp = recording_predict_mlp(real_predict_mlp, record, by_batch)
     start = qm.launches
     try:
         assisted, wall = stream(num_jobs, pred)
@@ -487,11 +509,7 @@ def predict_stream_phase(dev, num_jobs: int) -> dict:
         " (predict_quantiles holds _rows and _forward; _forward holds the "
         "device calls and _device_params)")
 
-    worst = 0.0
-    with torch.no_grad():
-        for x, params, out in record:
-            plain = predict_mlp_ref(x, *(params[k] for k in keys))
-            worst = max(worst, (out - plain).abs().max().item())
+    worst = recorded_predicts_err(record)
     check(len(record) == min(CHECK_PREDICTS, forwards),
           f"recorded {len(record)} predictor calls")
     check(worst <= ATOL, f"stream predictor outputs vs plain: max abs err "
@@ -1127,6 +1145,23 @@ CONTROL_JOBS = 2000
 MIGRATION_JOBS = 1000
 
 
+def first_tie_and_diff(log_a: list, log_b: list, what: str
+                       ) -> tuple[int, int, int | None]:
+    """Two runs' logs of (decision, its top-two gap): the decisions both
+    made, the first where either gap is below NEAR_TIE (or that count),
+    and the first whose decisions differ (or None).  Fails if they differ
+    before the first near-tie."""
+    n = min(len(log_a), len(log_b))
+    first_tie = next((i for i in range(n)
+                      if min(log_a[i][1], log_b[i][1]) < NEAR_TIE), n)
+    first_diff = next((i for i in range(n) if log_a[i][0] != log_b[i][0]),
+                      None)
+    check(first_diff is None or first_diff >= first_tie,
+          f"{what}: decision {first_diff} differs before the first near-tie "
+          f"({first_tie})")
+    return n, first_tie, first_diff
+
+
 def tree_leaves(tree) -> list[tuple[str, object]]:
     """(name, tensor) of each leaf of an agent's ``params``-shaped tree."""
     return [(f"{net}[{i}].{k}", lyr[k]) for net in ("actor", "critic")
@@ -1492,14 +1527,8 @@ def train_check_phase(dev, trained: dict) -> None:
         runs[str(device)] = (log, bounds, hist, wall)
     (log_c, bounds_c, hist_c, wall_c), (log_h, bounds_h, hist_h, wall_h) = \
         runs[str(dev)], runs["cpu"]
-    n = min(len(log_c), len(log_h))
-    first_tie = next((i for i in range(n)
-                      if min(log_c[i][1], log_h[i][1]) < NEAR_TIE), n)
-    first_diff = next((i for i in range(n) if log_c[i][0] != log_h[i][0]),
-                      None)
-    check(first_diff is None or first_diff >= first_tie,
-          f"small training: action {first_diff} differs before the first "
-          f"near-tie ({first_tie})")
+    n, first_tie, first_diff = first_tie_and_diff(log_c, log_h,
+                                                  "small training")
     if first_diff is None:
         check(len(log_c) == len(log_h), "small training: step counts differ")
     agree = 0
@@ -2864,8 +2893,9 @@ def greedy_tap(log: list):
 
 def paper_tables_phase(dev) -> dict:
     """26. the eight paper and stream benches of ``benchmarks_torch`` in
-    this process on the card, then one cached agent per variant evaluated
-    on the card and on the CPU."""
+    this process on the card, the first assisted stream's first predictor
+    calls held against the plain version, then one cached agent per
+    variant evaluated on the card and on the CPU."""
     import os
     import shutil
     import numpy as np
@@ -2884,20 +2914,29 @@ def paper_tables_phase(dev) -> dict:
     from benchmarks_torch import bench_prediction, common
     from benchmarks_torch.run import SPECIAL, Split
     from repro_torch.core import agent as agent_mod
-    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
     check((common.TRAIN_BATCHES, common.EVAL_BATCHES) ==
           (PAPER_TRAIN_BATCHES, PAPER_EVAL_BATCHES),
           "benchmarks_torch.common was imported before phase 26's knobs")
     shutil.rmtree(PAPER_AGENTS, ignore_errors=True)
     common.AGENTS = str(PAPER_AGENTS)
 
-    # the assisted arms' launches, per stream
+    # the assisted arms' launches, per stream; the first assisted stream's
+    # first CHECK_PREDICTS predictor calls, for the check against the plain
+    # version
     by_arm: dict[str, int] = {}
+    record: list = []
     real_stream = bench_prediction.stream_once
+    real_predict_mlp = ops.predict_mlp
 
     def counted_stream(scenario, num_jobs, assisted):
         before = qm.launches
-        out = real_stream(scenario, num_jobs, assisted)
+        if assisted and not record:
+            ops.predict_mlp = recording_predict_mlp(real_predict_mlp, record)
+        try:
+            out = real_stream(scenario, num_jobs, assisted)
+        finally:
+            ops.predict_mlp = real_predict_mlp
         by_arm[f"{scenario}/{'assisted' if assisted else 'blind'}"] = \
             qm.launches - before
         return out
@@ -2935,6 +2974,15 @@ def paper_tables_phase(dev) -> dict:
           and all(n == 0 for k, n in by_arm.items() if k.endswith("/blind"))
           and len(by_arm) == 2 * len(bench_prediction.SCENARIOS),
           f"paper tables: predict_mlp launches by arm {by_arm}")
+    worst = recorded_predicts_err(record)
+    check(record and all(out.is_cuda for _, _, out in record),
+          f"paper tables: {len(record)} predictor calls recorded on the card")
+    check(worst <= ATOL, f"paper tables: predictor outputs vs plain: max abs "
+          f"err {worst:.3e}")
+    rows_b = [x.shape[0] for x, _, _ in record]
+    print(f"paper tables: the first assisted stream's first {len(record)} "
+          f"predictor calls (B {min(rows_b)}-{max(rows_b)}) vs the plain "
+          f"version: max_abs_err={worst:.3e}", flush=True)
     for r in rows:
         print(f"paper tables: row {r}")
     print(f"paper tables: {len(PAPER_BENCHES)} benches, {len(rows)} rows, all "
@@ -2957,14 +3005,8 @@ def paper_tables_phase(dev) -> dict:
                 agent_mod.greedy_step = real_greedy
             runs[str(device)] = (ev, log)
         (ev_c, log_c), (ev_h, log_h) = runs[str(dev)], runs["cpu"]
-        n = min(len(log_c), len(log_h))
-        first_tie = next((i for i in range(n)
-                          if min(log_c[i][1], log_h[i][1]) < NEAR_TIE), n)
-        first_diff = next((i for i in range(n) if log_c[i][0] != log_h[i][0]),
-                          None)
-        check(first_diff is None or first_diff >= first_tie,
-              f"paper tables {variant}: decision {first_diff} differs before "
-              f"the first near-tie ({first_tie})")
+        n, first_tie, first_diff = first_tie_and_diff(
+            log_c, log_h, f"paper tables {variant}")
         if first_diff is None:
             check(len(log_c) == len(log_h) and ev_c == ev_h,
                   f"paper tables {variant}: the same decisions but card "

@@ -20,15 +20,16 @@ Async save: ``CheckpointManager.maybe_save`` copies every leaf to the
 writer's host memory before returning — a copy even of CPU tensors, which
 the train step updates in place — and a worker thread writes the copy.
 
-Sharded trees (DTensor leaves): every rank sends its local shard of each
-leaf to rank 0 (``gather``, padded to the largest shard), and rank 0 alone
-places the shards into the full array on the host and writes, so the
-files are those of the same values saved unsharded; no other rank copies
-anything to the host.  ``load_checkpoint(..., mesh=..., spec_tree=...)``
-inflates each leaf on the host, cuts out the rank's own shard there and
-moves only that shard to the device (``DTensor.from_local``): a checkpoint
-restores onto any mesh, whatever mesh wrote it, and the read threads hold
-at most ``_WORKERS`` full leaves at a time.
+Sharded trees (DTensor leaves): the owner of each distinct shard of a
+leaf (replicas stay silent) sends it to rank 0, and rank 0 alone places
+the shards into the full array on the host and writes, so the files are
+those of the same values saved unsharded; no other rank copies anything to
+the host, and rank 0's device holds one received shard at a time.
+``load_checkpoint(..., mesh=..., spec_tree=...)`` inflates each leaf on
+the host, cuts out the rank's own shard there and moves only that shard to
+the device (``DTensor.from_local``): a checkpoint restores onto any mesh,
+whatever mesh wrote it, and the read threads hold at most ``_WORKERS`` full
+leaves at a time.
 """
 from __future__ import annotations
 
@@ -156,42 +157,54 @@ def _shard_slices(shape, mesh_shape, coord, placements) -> tuple:
     return tuple(slice(a, a + n) for a, n in zip(start, size))
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes as a flat uint8 tensor (a view where it is
+    contiguous): gloo takes neither bf16 nor int16, and every dtype is
+    bytes."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
 def _gather_dtensor(t, writer: bool) -> np.ndarray | None:
     """Rank 0 gets the DTensor's full array on the host, put together from
-    every rank's local shard; other ranks send theirs and get ``None``.
-    A collective over the default group, which the mesh must span."""
+    its shards; other ranks get ``None``.  Each distinct shard crosses the
+    wire once: its owner, the rank at coordinate 0 of every mesh dim the
+    leaf is not sharded over, sends it to rank 0, which receives the shards
+    one at a time and places each on the host, so its device holds one
+    received shard beside its own.  The mesh must span the default group."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
     if any(p.is_partial() for p in t.placements):
         t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
                                            else p for p in t.placements])
-    mesh = t.device_mesh
-    ranks = mesh.mesh.cpu().numpy()
+    ranks = t.device_mesh.mesh.cpu().numpy()
     world = dist.get_world_size()
     if ranks.size != world:
         raise ValueError(f"a mesh of {ranks.size} ranks in a world of {world}")
-    shape, mesh_shape = tuple(t.shape), tuple(ranks.shape)
-    coords = {int(ranks[c]): c for c in np.ndindex(*ranks.shape)}
-    slices = [_shard_slices(shape, mesh_shape, coords[r], t.placements)
-              for r in range(world)]
-    item = t.element_size()
-    counts = [item * int(np.prod([s.stop - s.start for s in sl]))
-              for sl in slices]
-    # the shard's bytes, padded to the largest shard's (gloo takes neither
-    # bf16 nor int16, and every dtype is bytes)
-    flat = t.to_local().reshape(-1).view(torch.uint8)
-    most = max(counts)
-    if flat.numel() != most:
-        flat = torch.cat([flat, flat.new_zeros(most - flat.numel())])
-    pieces = [torch.empty_like(flat) for _ in range(world)] if writer \
-        else None
-    dist.gather(flat, pieces, dst=0)
+    shape = tuple(t.shape)
+    owners = {}                     # rank -> the slices of its shard
+    for c in np.ndindex(*ranks.shape):
+        if any(c[m] for m, p in enumerate(t.placements) if not p.is_shard()):
+            continue                # a replica of another rank's shard
+        sl = _shard_slices(shape, ranks.shape, c, t.placements)
+        if all(s.stop > s.start for s in sl):
+            owners[int(ranks[c])] = sl
+    rank, local = dist.get_rank(), t.to_local()
     if not writer:
+        if rank in owners:
+            dist.send(_bytes(local), dst=0)
         return None
     full = np.empty(shape, _numpy(torch.empty(0, dtype=t.dtype)).dtype)
-    for sl, n, piece in zip(slices, counts, pieces):
-        block = piece[:n].cpu().numpy().view(full.dtype)
-        full[sl] = block.reshape([s.stop - s.start for s in sl])
+    for r, sl in sorted(owners.items()):
+        if r == rank:
+            piece = _bytes(local)
+        else:
+            piece = local.new_empty(
+                full.itemsize * int(np.prod([s.stop - s.start for s in sl])),
+                dtype=torch.uint8)
+            dist.recv(piece, src=r)
+        full[sl] = piece.cpu().numpy().view(full.dtype).reshape(
+            [s.stop - s.start for s in sl])
+        del piece
     return full
 
 
@@ -211,7 +224,7 @@ def _host_copy(t: torch.Tensor, writer: bool
 
 def _snapshot(tree) -> dict[str, tuple[np.ndarray, str]]:
     """The writer's host copy of every leaf, by key; on other ranks (which
-    take part in each DTensor's gather) an empty dict."""
+    send the shards they own) an empty dict."""
     writer = _is_writer()
     flat: dict[str, tuple[np.ndarray, str]] = {}
 
@@ -364,8 +377,8 @@ class CheckpointManager:
         os.makedirs(path, exist_ok=True)
 
     def maybe_save(self, step: int, tree) -> bool:
-        """At every ``interval``-th step, snapshot ``tree`` (every rank takes
-        part in a sharded tree's gathers) and write it in the background
+        """At every ``interval``-th step, snapshot ``tree`` (every rank sends
+        the shards it owns of a sharded tree) and write it in the background
         (rank 0)."""
         if step % self.interval != 0:
             return False

@@ -25,9 +25,10 @@ limit) computes everything; the tests read its results:
   reads it, and restored onto the 2x2 mesh and onto a 4x1 mesh every
   rank's shards equal ``distribute_tensor``'s bit for bit.
 - Checkpoint memory: on the 2x2 mesh, no rank but the writer copies more
-  than its local shards to the host while it saves, and no rank holds
-  more than its local shards and its read threads' leaves while it
-  restores.
+  than its local shards to the host while it saves, the writer receives
+  one shard at a time, and no rank holds more than its local shards and
+  its read threads' leaves while it restores.  Uneven and empty shards
+  save to the unsharded files and restore to ``distribute_tensor``'s.
 - Shard identity: each rank's local shard of a few leaves equals the
   reference's ``NamedSharding`` shard for the device at its mesh position
   (computed with 4 fake JAX devices), on the 2x2 mesh and, for a batch
@@ -195,32 +196,72 @@ from repro_torch.ckpt import checkpoint as ckpt_mod
 ckpt_mod._WORKERS = 1      # one read thread, whatever the host's cores
 
 def host_peak(fn):
+    """(fn(), the most bytes numpy and Python held at once, the most that
+    torch storages made in the call held at once: what a card would hold)."""
     tracemalloc.start()
     counter = CollectiveCounter()
     with counter:
         out = fn()
-    peak = tracemalloc.get_traced_memory()[1] + counter.peak_bytes
+    peak = tracemalloc.get_traced_memory()[1]
     tracemalloc.stop()
-    return out, peak
+    return out, peak, counter.peak_bytes
 
 gran_specs = sharded_specs(LM(get_config("granite-moe-1b-a400m", smoke=True),
                               impl, device="cpu", rules=DEFAULT_RULES), mesh)
 ck_state = os.path.join(ck, "state")
-_, save_peak = host_peak(lambda: save_checkpoint(ck_state, 1, state))
-(got, _), restore_peak = host_peak(lambda: load_checkpoint(
+_, save_host, save_dev = host_peak(lambda: save_checkpoint(ck_state, 1, state))
+(got, _), restore_host, restore_dev = host_peak(lambda: load_checkpoint(
     ck_state, state, mesh=mesh,
     spec_tree={"params": gran_specs[0], "opt": gran_specs[1]}))
+local_bytes = [t.to_local().numel() * t.element_size()
+               if isinstance(t, DTensor) else t.numel() * t.element_size()
+               for _, t in tree_leaves(state)]
 res["ckpt_mem"] = {
-    "save_peak": save_peak, "restore_peak": restore_peak,
-    "local": sum(t.to_local().numel() * t.element_size()
-                 if isinstance(t, DTensor) else t.numel() * t.element_size()
-                 for _, t in tree_leaves(state)),
+    "save_peak": save_host + save_dev, "save_dev": save_dev,
+    "restore_peak": restore_host + restore_dev,
+    "local": sum(local_bytes), "largest_local": max(local_bytes),
+    "table_m": [repr(p) for p in state["opt"]["m"]["embed"]["table"].placements],
     "full": sum(t.numel() * t.element_size() for _, t in tree_leaves(state)),
     "largest": max(t.numel() * t.element_size() for _, t in tree_leaves(state)),
     "leaves": sum(1 for _ in tree_leaves(state)),
     "workers": ckpt_mod._WORKERS, "chunk": ckpt_mod._CHUNK,
     "equal": all(torch.equal(full(a), full(b)) for (_, a), (_, b) in zip(
         tree_leaves(got), tree_leaves(state)))}
+
+# uneven shards: 6 rows over all 4 ranks, a dim shorter than its mesh
+# axis, both dims sharded, a leaf replicated over "data", and bf16; saved
+# from DTensors on the 2x2 mesh and unsharded, and restored onto the 2x2
+# and 4x1 meshes
+rng = np.random.default_rng(11)
+uneven = {"rows6": (rng.standard_normal((6, 8)), PS(("data", "model"))),
+          "short": (rng.standard_normal((1, 5)), PS("data")),
+          "both": (rng.standard_normal((7, 3)), PS("data", "model")),
+          "rep": (rng.standard_normal((10, 5)), PS(None, "model")),
+          "bf16": (rng.standard_normal((5, 3)), PS("model", "data"))}
+uneven_full = {k: torch.from_numpy(a.astype(np.float32)).to(
+    torch.bfloat16 if k == "bf16" else torch.float32)
+    for k, (a, _) in uneven.items()}
+uneven_specs = {k: spec for k, (_, spec) in uneven.items()}
+uneven_dt = {k: distribute_tensor(v, mesh, placements(uneven_specs[k], mesh))
+             for k, v in uneven_full.items()}
+_, _, uneven_save_dev = host_peak(lambda: save_checkpoint(
+    os.path.join(ck, "uneven_sharded"), 1, uneven_dt))
+save_checkpoint(os.path.join(ck, "uneven_plain"), 1, uneven_full)
+res["uneven"] = {"save_dev": uneven_save_dev,
+                 "largest_local": max(t.to_local().numel() * t.element_size()
+                                      for t in uneven_dt.values()),
+                 "local_shapes": {k: list(t.to_local().shape)
+                                  for k, t in uneven_dt.items()}}
+for tag, m in (("2x2", mesh), ("4x1", make_host_mesh(model=1, device_type="cpu"))):
+    got, _ = load_checkpoint(os.path.join(ck, "uneven_sharded"), uneven_full,
+                             mesh=m, spec_tree=uneven_specs)
+    res["uneven"][tag] = {
+        k: [repr(p) for p in got[k].placements] + [list(got[k].to_local().shape)]
+        + [bool(got[k].dtype == v.dtype and list(got[k].shape) == list(v.shape)
+                and torch.equal(got[k].to_local(), distribute_tensor(
+                    v, m, placements(uneven_specs[k], m)).to_local())
+                and torch.equal(got[k].full_tensor(), v))]
+        for k, v in uneven_full.items()}
 
 # shard identity: 2x2 (data, model) and (2, 2, 1) (pod, data, model)
 rng = np.random.default_rng(7)
@@ -331,11 +372,15 @@ def test_checkpoint_on_a_mesh_copies_only_local_shards(session):
     """Saving and restoring ``train_loop``'s sharded params and moments on
     the 2x2 mesh: a rank other than the writer allocates no more host bytes
     than its local shards while it saves (it sends them to rank 0 and keeps
-    no copy), and every rank's restore stays within its local shards plus
-    what its read thread holds (a full leaf, a chunk read from the file and
-    the chunk inflated, twice while zlib joins its output) plus 4 KiB a leaf
-    for the Python objects of the restored tree, a bound below the full
-    state; the restored values are the saved ones."""
+    no copy); the writer's torch storages (its card's, on a card) hold at
+    most one shard at a time, the largest being its own, whereas a gather
+    from every rank would hold the 4 ranks' shards of the embedding table's
+    moments, which are replicated over "data"; and every rank's restore
+    stays within its local shards plus what its read thread holds (a full
+    leaf, a chunk read from the file and the chunk inflated, twice while
+    zlib joins its output) plus 4 KiB a leaf for the Python objects of the
+    restored tree, a bound below the full state; the restored values are
+    the saved ones."""
     _, res = session
     for rank, r in enumerate(res):
         m = r["ckpt_mem"]
@@ -343,6 +388,10 @@ def test_checkpoint_on_a_mesh_copies_only_local_shards(session):
         assert m["local"] < m["full"], m
         if rank:
             assert m["save_peak"] <= m["local"], m
+        else:
+            assert m["table_m"] == ["Replicate()", "Shard(dim=0)"], m
+            assert WORLD * m["largest_local"] > m["largest"], m
+            assert m["save_dev"] <= m["largest_local"], m
         threads = m["workers"] * (m["largest"] + 3 * min(m["chunk"],
                                                          m["largest"]))
         bound = m["local"] + threads + 4096 * m["leaves"]
@@ -358,6 +407,44 @@ def test_sharded_save_is_the_unsharded_save(session):
     assert names == sorted(os.listdir(b)) and "manifest.msgpack" in names
     for n in names:
         assert (a / n).read_bytes() == (b / n).read_bytes(), n
+
+
+def test_uneven_sharded_save_is_the_unsharded_save(session):
+    """Leaves whose shards differ in size or are empty (6 rows over all 4
+    ranks, 1 row over 2, 7 x 3 over both axes, bf16 5 x 3 sharded
+    transposed) and one replicated over "data": saved from the 2x2 mesh,
+    the files are those of the unsharded save, and the writer's torch
+    storages held at most one shard at a time."""
+    out, res = session
+    u = res[0]["uneven"]
+    assert u["local_shapes"] == {"rows6": [2, 8], "short": [1, 5],
+                                 "both": [4, 2], "rep": [10, 3],
+                                 "bf16": [3, 2]}
+    assert [r["uneven"]["local_shapes"]["short"] for r in res] == \
+        [[1, 5], [1, 5], [0, 5], [0, 5]]
+    assert u["save_dev"] <= u["largest_local"], u
+    a, b = out / "ckpt" / "uneven_sharded" / "step_00000001", \
+        out / "ckpt" / "uneven_plain" / "step_00000001"
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)) and len(names) == 6
+    for n in names:
+        assert (a / n).read_bytes() == (b / n).read_bytes(), n
+
+
+@pytest.mark.parametrize("tag", ["2x2", "4x1"])
+def test_uneven_restore_is_distribute_tensor(session, tag):
+    """The uneven leaves restored onto the 2x2 mesh and onto the 4x1 mesh
+    (6 rows over 4 ranks leaves the last one empty): on every rank each
+    leaf's placements and local shard are ``distribute_tensor``'s of the
+    saved values, bit for bit, and its full tensor is the saved one."""
+    _, res = session
+    shapes = []
+    for r in res:
+        got = r["uneven"][tag]
+        assert all(v[-1] for v in got.values()), got
+        shapes.append(got["rows6"][-2])
+    assert shapes == ([[2, 8], [1, 8], [2, 8], [1, 8]] if tag == "2x2"
+                      else [[2, 8], [2, 8], [2, 8], [0, 8]])
 
 
 def test_reference_reads_the_sharded_save(session):

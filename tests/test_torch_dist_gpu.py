@@ -13,8 +13,8 @@ JAX nor the ``repro`` package:
 - Four ranks on the one card over ``gloo``: ``pod_allreduce_compressed`` on
   CUDA tensors equals a numpy evaluation of its formula bit for bit.
 - Where there are four cards, a 2x2 mesh over NCCL: the sharded step,
-  the compressed all-reduce and GPipe across the cards (skipped on one
-  card).
+  the compressed all-reduce, GPipe and the sharded checkpoint across the
+  cards (skipped on one card).
 """
 import json
 import os
@@ -92,6 +92,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.launch.mesh import make_host_mesh
@@ -101,7 +102,7 @@ from repro_torch.train import OptConfig, make_train_step, opt_init
 from repro_torch.train.compression import pod_allreduce_compressed
 from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.pipeline import make_pipelined_apply
-from repro_torch.train.step import shard_train_step
+from repro_torch.train.step import shard_train_step, sharded_specs
 torch.backends.cuda.matmul.allow_tf32 = False
 rank = int(os.environ["RANK"])
 torch.cuda.set_device(rank)
@@ -130,6 +131,24 @@ for arch in ("granite-moe-1b-a400m", "yi-6b"):
     res[arch] = {"loss": [float(m1["loss"]), float(m2["loss"])],
                  "gnorm": [float(m1["gnorm"]), float(m2["gnorm"])], "param_err": err,
                  "moment_err": m_err}
+    if arch == "granite-moe-1b-a400m":
+        # the sharded checkpoint: rank 0's card holds one received shard at
+        # a time; restored onto the mesh, every shard is the saved one
+        state = {"params": p2, "opt": o2}
+        local = [t.to_local().numel() * t.element_size() for _, t in tree_leaves(state)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        save_checkpoint(sys.argv[1] + "/ckpt", 1, state)
+        save_extra = torch.cuda.max_memory_allocated() - before
+        pspecs, ospecs = sharded_specs(sharded, mesh)
+        got, _ = load_checkpoint(sys.argv[1] + "/ckpt", state, mesh=mesh,
+                                 spec_tree={"params": pspecs, "opt": ospecs})
+        res["ckpt"] = {
+            "save_extra": save_extra,
+            "largest_local": max(local), "leaves": len(local),
+            "same": all(a.placements == b.placements and torch.equal(a.to_local(), b.to_local())
+                        for (_, a), (_, b) in zip(tree_leaves(got), tree_leaves(state)))}
 x = np.random.default_rng(5).standard_normal((4, 3, 257)).astype(np.float32)
 res["compress"] = pod_allreduce_compressed(
     {"x": torch.from_numpy(x[rank]).cuda()})["x"].cpu().tolist()
@@ -201,7 +220,10 @@ def test_four_cards_over_nccl(four_cards, tmp_path):
     its clipped gradient, 1e-4 of the leaf's largest, params 2 x lr), the
     compressed all-reduce
     against its formula bit for bit, GPipe over point-to-point between the
-    cards within 1e-5 of the sequential stages."""
+    cards within 1e-5 of the sequential stages; the stepped granite state
+    saved from the mesh (rank 0's card holding at most one received shard,
+    rounded to the allocator's 512 bytes, beyond what it held) and restored
+    onto it shard for shard."""
     _ranks(_NCCL4, str(tmp_path), 4, tmp_path)
     x = np.random.default_rng(5).standard_normal((4, 3, 257)).astype(np.float32)
     want = pod_allreduce_formula(list(x))
@@ -218,3 +240,7 @@ def test_four_cards_over_nccl(four_cards, tmp_path):
         np.testing.assert_array_equal(np.asarray(got["compress"], np.float32),
                                       want)
         assert got["pipe_err"] <= 1e-5
+        ck = got["ckpt"]
+        assert ck["same"] and ck["leaves"] > 0, ck
+        if r == 0:
+            assert ck["save_extra"] <= ck["largest_local"] + 512, ck
