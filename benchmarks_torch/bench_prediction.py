@@ -28,7 +28,6 @@ REPRO_BENCH_DEVICE) runs the predictor on the CPU.
 """
 from __future__ import annotations
 
-import json
 import os
 import platform
 import sys
@@ -36,7 +35,8 @@ import time
 
 import numpy as np
 
-from benchmarks_torch.common import DEVICE_ENV, bench_device, provenance
+from benchmarks_torch.common import (DEVICE_ENV, bench_device, provenance,
+                                     rounded, write_json)
 from repro_torch.core.policies import make_policy
 from repro_torch.core.prioritizer import PolicyPrioritizer
 from repro_torch.predict import RuntimePredictor
@@ -150,14 +150,11 @@ def _emit_json(results: dict[str, dict],
         "rescan_interval_s": 60.0,
         "host": platform.node() or "unknown",
         "machine": platform.machine(),
-        "results": {k: {m: (round(v, 4) if isinstance(v, float) else v)
-                        for m, v in r.items()} for k, r in results.items()},
+        "results": {k: rounded(r) for k, r in results.items()},
         "acceptance": _acceptance(results, preds),
         "provenance": provenance(seed=0),
     }
-    with open(JSON_PATH, "w") as f:
-        json.dump(doc, f, indent=2, sort_keys=True)
-        f.write("\n")
+    write_json(JSON_PATH, doc)
     return doc
 
 

@@ -23,13 +23,13 @@ overrides the artifact path, REPRO_BENCH_RL_STREAMS the training budget;
 """
 from __future__ import annotations
 
-import json
 import os
 import platform
 import sys
 import time
 
-from benchmarks_torch.common import DEVICE_ENV, bench_device, provenance
+from benchmarks_torch.common import (DEVICE_ENV, bench_device, provenance,
+                                     write_json)
 from repro_torch.core.agent import PPOConfig
 from repro_torch.rl import (RLTuneTrainer, StreamingConfig, StreamingTrainer,
                             TrainerConfig)
@@ -148,9 +148,7 @@ def run(out: list[str] | None = None, smoke: bool = False) -> dict:
         "acceptance": acc,
         "provenance": provenance(seed=0),
     }
-    with open(JSON_PATH, "w") as f:
-        json.dump(doc, f, indent=2, sort_keys=True)
-        f.write("\n")
+    write_json(JSON_PATH, doc)
     print(f"# wrote {os.path.normpath(JSON_PATH)}")
     print(f"# streaming beats fcfs on {acc['scenarios_beaten']}/"
           f"{len(SCENARIOS)} scenarios -> "

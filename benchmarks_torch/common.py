@@ -1,6 +1,7 @@
-"""Shared helpers of the port's paper benches: agent training and caching,
-evaluation, CSV rows, and the provenance stamp of every
-``benchmarks_torch/BENCH_*.json`` record.
+"""Shared helpers of the port's benches: agent training and caching,
+evaluation, CSV rows, the provenance stamp of every
+``benchmarks_torch/BENCH_*.json`` record, and the stream loop and
+decision timer of the host benches (streaming, scale curve, obs).
 
 The analog of ``benchmarks/common.py`` on ``repro_torch``: the same scale
 knobs (the same ``REPRO_BENCH_*`` variables), the same cache layout and
@@ -11,6 +12,7 @@ Agents live on the device named by ``REPRO_BENCH_DEVICE`` (``cuda`` unless
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import platform
 import subprocess
@@ -64,6 +66,20 @@ def peak_rss_mb() -> float | None:
     return round(peak / 1024.0, 1)
 
 
+def cpu_model() -> str:
+    """The host CPU's model name (``lscpu``'s "Model name"), or
+    ``platform.processor()`` where ``/proc/cpuinfo`` is absent: the host
+    benches' times read the host, not the card."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or "unknown"
+
+
 def _git_sha() -> str:
     try:
         out = subprocess.run(
@@ -77,16 +93,18 @@ def _git_sha() -> str:
     return "unknown"
 
 
-def provenance(seed: int | None = None) -> dict:
+def provenance(seed: int | None = None, host_only: bool = False) -> dict:
     """Provenance stamp for ``benchmarks_torch/BENCH_*.json``: the code,
     the toolchain (torch, CUDA), the card (its name and power limit as
     ``nvidia-smi`` gives them; ``None`` when the benches run on the CPU),
-    the knobs and the time."""
+    the host CPU, the knobs and the time.  A ``host_only`` bench puts no
+    tensor on any device: its device is ``"host"`` and it names no card,
+    whatever ``--device`` says."""
     import numpy
     import torch
 
     from benchmarks_torch.bench_latency import nvidia_smi_line
-    device = bench_device()
+    device = "host" if host_only else bench_device()
     on_card = device.startswith("cuda")
     stamp = {
         "git_sha": _git_sha(),
@@ -99,6 +117,8 @@ def provenance(seed: int | None = None) -> dict:
         "nvidia_smi": nvidia_smi_line() if on_card else None,
         "host": platform.node() or "unknown",
         "machine": platform.machine(),
+        "cpu": cpu_model(),
+        "cpus": os.cpu_count(),
         "wall_clock_utc": datetime.datetime.now(
             datetime.timezone.utc).isoformat(timespec="seconds"),
         "scale": SCALE,
@@ -156,3 +176,108 @@ def eval_pair(tr: RLTuneTrainer, num_batches: int = 0) -> dict:
 
 def row(name: str, us_per_call: float, derived: str) -> str:
     return f"{name},{us_per_call:.1f},{derived}"
+
+
+class DecisionTimer:
+    """Wraps a prioritizer to record the wall-clock latency of each rank
+    (both the plain protocol entry point and the engine's contiguous-field
+    one).  ``rank_window`` is a method, so an engine built on the wrapper
+    picks it up once (``getattr``) and takes the window route, as on the
+    bare prioritizer."""
+
+    def __init__(self, base):
+        self.base = base
+        self.use_estimates = base.use_estimates
+        self.lat: list[float] = []
+
+    def rank(self, jobs, cluster, now):
+        t0 = time.perf_counter()
+        out = self.base.rank(jobs, cluster, now)
+        self.lat.append(time.perf_counter() - t0)
+        return out
+
+    def rank_window(self, jobs, cluster, now, fields):
+        base = getattr(self.base, "rank_window", None)
+        if base is None:
+            return self.rank(jobs, cluster, now)
+        t0 = time.perf_counter()
+        out = base(jobs, cluster, now, fields)
+        self.lat.append(time.perf_counter() - t0)
+        return out
+
+    def observe_finish(self, job):
+        self.base.observe_finish(job)
+
+
+def drive_stream(engine, jobs) -> float:
+    """Stream ``jobs`` (sorted by submit time) through ``engine`` in
+    1h-of-simulated-time chunks, stepping as each chunk lands; the horizon
+    is anchored on the next due arrival or event, so traffic gaps are
+    skipped and no event runs ahead of an unfed arrival.  Returns the wall
+    seconds."""
+    t0 = time.perf_counter()
+    feed = 0
+    while True:
+        nxt = engine.next_event_time()
+        if feed < len(jobs):
+            nxt = min(nxt, jobs[feed].submit_time)
+        if nxt == float("inf"):
+            break
+        horizon = max(engine.now, nxt) + 3600.0
+        hi = feed
+        while hi < len(jobs) and jobs[hi].submit_time <= horizon:
+            hi += 1
+        if hi > feed:
+            engine.submit(jobs[feed:hi])
+            feed = hi
+        engine.step(horizon)
+    return time.perf_counter() - t0
+
+
+#: the fields of a bench record that read a clock, the host or an artifact
+#: path (walls, jobs/s, latencies, speedups, peak RSS, the obs overhead and
+#: the verdicts computed from latencies): two runs of one bench on the same
+#: inputs, on any host and in either package, agree on every other field
+CLOCK_FIELDS = frozenset({
+    "provenance", "host", "machine", "trace_path", "prom_path",
+    "wall_s", "wall_serial_s", "wall_parallel_s", "wall_uncached_s",
+    "wall_cached_s", "jobs_per_s", "lat_mean_ms", "lat_p99_ms",
+    "speedup_vs_pre_pr", "parallel_speedup", "cache_speedup", "peak_rss_mb",
+    "latency_ratio", "sublinear", "p99_overhead", "p99_off_ms", "p99_on_ms",
+    "mean_off_ms", "mean_on_ms", "within_bound", "passed",
+    "deep_queue_speedup"})
+
+
+def rounded(d: dict) -> dict:
+    """``d`` with every float rounded to 4 places (the records' form)."""
+    return {k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in d.items()}
+
+
+def write_json(path: str, doc: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+def device_main(run, doc: str, smoke: int | None = None) -> None:
+    """``python -m benchmarks_torch.bench_*`` for the host-only benches:
+    ``--device`` (exported as ``REPRO_BENCH_DEVICE``, taken as every port
+    bench takes it; these put no tensor on it and stamp ``"host"``) and,
+    where the reference's CLI has it, ``--smoke`` (at most ``smoke`` jobs a
+    stream); then ``run``."""
+    import argparse
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    if smoke is not None:
+        ap.add_argument("--smoke", action="store_true",
+                        help=f"at most {smoke} jobs a stream")
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    help=f"bench device (default {DEVICE_ENV} or cuda); "
+                    "this bench runs on the host only")
+    args = ap.parse_args()
+    if args.device:
+        os.environ[DEVICE_ENV] = args.device
+    if smoke is not None:
+        run(smoke=args.smoke)
+    else:
+        run([])

@@ -1,8 +1,12 @@
-"""Benchmark runner of the port: one module per paper table or figure.
+"""Benchmark runner of the port: one module per paper table or figure, and
+the stream and control-plane benches.
 
     PYTHONPATH=src python -m benchmarks_torch.run [module ...] [--smoke] [--rss] [--device cuda|cpu]
 
-The analog of ``benchmarks/run.py`` over the port's benches (``MODULES``).
+The analog of ``benchmarks/run.py`` over the port's benches (``MODULES``:
+latency, variability, naive, qssf, util, transfer, policies, rl_streaming,
+prediction, streaming, scale_curve, preemption, autoscaling, federation,
+obs, chaos).
 Prints human-readable tables plus ``name,us_per_call,derived`` CSV rows at
 the end.  ``--smoke`` runs every selected module that supports it in its
 fast mode (modules whose ``run`` accepts a ``smoke`` kwarg); ``--rss``
@@ -13,8 +17,9 @@ there.  REPRO_BENCH_SCALE=full for paper-scale runs.
 
 After each module the runner prints its wall split into the agents'
 ``act`` calls, their PPO updates and the rest (simulation, features,
-MILP), and the ``policy_mlp`` and ``predict_mlp`` kernel launches it made
-(0 on the CPU, where the plain versions run).
+MILP); the seconds in single-cluster engine steps, in a fleet's member
+steps and in MILP placement; and the ``policy_mlp`` and ``predict_mlp``
+kernel launches it made (0 on the CPU, where the plain versions run).
 
 A module that raises marks the whole run failed: the remaining modules
 still run, but the runner exits nonzero.
@@ -25,58 +30,99 @@ import argparse
 import inspect
 import os
 import sys
+import threading
 import time
 
 MODULES = ("latency", "variability", "naive", "qssf", "util", "transfer",
-           "policies", "rl_streaming", "prediction")
+           "policies", "rl_streaming", "prediction", "streaming",
+           "scale_curve", "preemption", "autoscaling", "federation", "obs",
+           "chaos")
 SPECIAL = {"naive": "benchmarks_torch.bench_naive_vs_pro"}
 
 
 class Split:
-    """Calls of and seconds in ``PPOAgent.act`` (one a decision) and
-    ``PPOAgent._run_update`` (one a PPO update), and the launch counts of
-    the ``policy_mlp`` and ``predict_mlp`` kernels, while entered."""
+    """While entered: calls of and seconds in ``PPOAgent.act`` (one a
+    decision) and ``PPOAgent._run_update`` (one a PPO update); seconds in
+    ``SchedulerEngine.step`` on the main thread outside a federation
+    (``engine``), in ``FederatedScheduler._step_members`` (``fleet``: the
+    members' steps, serial or in the pool's threads) and in the engines'
+    ``choose_allocation`` calls (``milp``, summed over threads, a part of
+    the first two); and the launch counts of the ``policy_mlp`` and
+    ``predict_mlp`` kernels."""
 
     def __enter__(self):
         from repro_torch.core.agent import PPOAgent
+        from repro_torch.fed.federation import FederatedScheduler
         from repro_torch.kernels import policy_mlp, predict_mlp
+        from repro_torch.sched import engine as engine_mod
         self.kernels = {"policy_mlp": policy_mlp, "predict_mlp": predict_mlp}
         self.start = {k: m.launches for k, m in self.kernels.items()}
-        self.seconds = {"act": 0.0, "update": 0.0}
-        self.calls = {"act": 0, "update": 0}
-        self.real = {"act": PPOAgent.act, "update": PPOAgent._run_update}
+        self.seconds = {"act": 0.0, "update": 0.0, "engine": 0.0,
+                        "fleet": 0.0, "milp": 0.0}
+        self.calls = {"act": 0, "update": 0, "milp": 0}
+        targets = {"act": (PPOAgent, "act"),
+                   "update": (PPOAgent, "_run_update"),
+                   "engine": (engine_mod.SchedulerEngine, "step"),
+                   "fleet": (FederatedScheduler, "_step_members"),
+                   "milp": (engine_mod, "choose_allocation")}
+        self.real = {k: (owner, attr, getattr(owner, attr))
+                     for k, (owner, attr) in targets.items()}
+        lock = threading.Lock()
+        in_fleet = [False]
+        main = threading.main_thread()
         self.t0 = time.perf_counter()
 
-        def timed(name):
-            real = self.real[name]
+        def timed(name, counted=lambda: True):
+            real = self.real[name][2]
 
             def call(*args, **kwargs):
-                self.calls[name] += 1
+                if not counted():
+                    return real(*args, **kwargs)
                 t = time.perf_counter()
                 try:
                     return real(*args, **kwargs)
                 finally:
-                    self.seconds[name] += time.perf_counter() - t
+                    dt = time.perf_counter() - t
+                    with lock:
+                        self.seconds[name] += dt
+                        if name in self.calls:
+                            self.calls[name] += 1
             return call
 
-        PPOAgent.act = timed("act")
-        PPOAgent._run_update = timed("update")
+        timed_fleet = timed("fleet")
+
+        def fleet(fed, until):
+            in_fleet[0] = True
+            try:
+                return timed_fleet(fed, until)
+            finally:
+                in_fleet[0] = False
+
+        patched = {name: timed(name) for name in ("act", "update", "milp")}
+        patched["engine"] = timed(
+            "engine", lambda: threading.current_thread() is main
+            and not in_fleet[0])
+        patched["fleet"] = fleet
+        for name, (owner, attr, _) in self.real.items():
+            setattr(owner, attr, patched[name])
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core.agent import PPOAgent
-        PPOAgent.act = self.real["act"]
-        PPOAgent._run_update = self.real["update"]
+        for owner, attr, real in self.real.values():
+            setattr(owner, attr, real)
         self.wall = time.perf_counter() - self.t0
         self.launches = {k: m.launches - self.start[k]
                          for k, m in self.kernels.items()}
         return False
 
     def line(self) -> str:
-        act, upd = self.seconds["act"], self.seconds["update"]
+        s = self.seconds
+        act, upd = s["act"], s["update"]
         return (f"wall {self.wall:.1f}s: act {act:.1f}s ({self.calls['act']} "
                 f"decisions), update {upd:.1f}s ({self.calls['update']}), "
-                f"rest {self.wall - act - upd:.1f}s; launches " +
+                f"rest {self.wall - act - upd:.1f}s; engine {s['engine']:.1f}s, "
+                f"fleet members {s['fleet']:.1f}s, milp {s['milp']:.1f}s "
+                f"({self.calls['milp']} calls); launches " +
                 ", ".join(f"{k} {n}" for k, n in self.launches.items()))
 
 

@@ -163,7 +163,25 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     assisted arm and none in a blind one; then the cached pro, naive and
     inspector philly agents evaluated on the card and on the CPU: the same
     greedy decisions up to the first near-tie (two live logits within
-    1e-4) and, where all agree, the same ``evaluate()``.
+    1e-4) and, where all agree, the same ``evaluate()``;
+27. host benches and examples: (a) ``benchmarks_torch.run`` over the seven
+    stream and control-plane benches (streaming at 1,000 jobs, the rest at
+    smoke size; records under the git-ignored
+    ``build/chip_smoke_host_benches/``): every job completed, every float
+    finite, the fleet's serial and parallel runs identical, the trace
+    valid and obs-off identical, every acceptance block printed, no kernel
+    launched (FCFS on the host, as the reference's benches); (b) the four
+    examples of ``examples_torch`` through their ``main`` on the card:
+    ``quickstart --batches 2`` (policy_mlp launches equal to the RL
+    decisions; the trained agent's ``evaluate()`` on the CPU with the same
+    weights: the base arm equal, the greedy decisions equal up to the
+    first near-tie), ``cluster_failover`` (the same; its fcfs
+    ``BatchResult`` equal to the CPU's), ``serve_lm --arch
+    jamba-v0.1-52b`` (all three LM kernels launched at the smoke config's
+    shapes; the card's tokens and logits against a CPU run with the same
+    weights up to each request's first differing token, at phase 15's
+    tolerances) and ``train_lm`` (example-15m, 60 steps: the loss falls,
+    no kernel launched).
 
 Then one JSON line describing all five kernels (times, launches, bounds;
 ``launches_by_path`` gives each kernel's launches on each path it runs
@@ -584,6 +602,11 @@ LM_REQUESTS = 8
 # of the difference at most a tenth of the logits' RMS (unrelated logits
 # would give ~1.4)
 PREFILL_TOL, DECODE_TOL, REL_RMS_TOL = 0.15, 0.2, 0.1
+# a served token that differs between two runs must be a near-tie there:
+# the card's logit for its own token at most LM_NEAR_TIE above its logit for
+# the other run's (phase 27's jamba smoke logits have an RMS of about 0.35,
+# and the H100's differ from the CPU's by at most about 0.006)
+LM_NEAR_TIE = 0.05
 PEAK_BF16_FLOPS = 989e12
 # a zero_ of this many bytes between router calls evicts the 50 MB L2, as
 # the expert GEMMs between two router calls of the served model do
@@ -959,6 +982,21 @@ def profile_where_time_goes(model, params, engine, prompts) -> None:
               mr.launches - n0)
 
 
+def hold_logits(kl, xl, tol: float, what: str) -> tuple[float, float]:
+    """Logits ``kl`` held to ``xl``: all finite, max |kl - xl| <= tol +
+    tol |xl| and RMS(kl - xl) <= REL_RMS_TOL RMS(xl); returns (max abs
+    diff, relative RMS)."""
+    import torch
+    diff = (kl - xl).abs()
+    bad = int((diff > tol + tol * xl.abs()).sum())
+    rel = float((kl - xl).pow(2).mean().sqrt() / xl.pow(2).mean().sqrt())
+    check(bool(torch.isfinite(kl).all()) and bad == 0 and rel <= REL_RMS_TOL,
+          f"{what}: {bad} logits outside {tol} abs+rel, max abs diff "
+          f"{float(diff.max()):.4f}, relative RMS {rel:.4f} (at most "
+          f"{REL_RMS_TOL}), finite {bool(torch.isfinite(kl).all())}")
+    return float(diff.max()), rel
+
+
 def plain_path_check(cfg, params, prompts, new_tokens, done, rec, max_len,
                      dev, label) -> None:
     """The first batch of ``prompts`` again through the plain path
@@ -985,16 +1023,8 @@ def plain_path_check(cfg, params, prompts, new_tokens, done, rec, max_len,
     k_logits, x_logits = rec["logits"], x_rec["logits"]
 
     def compare(kl, xl, tol, what):
-        """max |kl - xl| <= tol + tol |xl| and RMS(kl - xl) <= REL_RMS_TOL
-        RMS(xl); returns (max abs diff, relative RMS)."""
-        diff = (kl - xl).abs()
-        bad = int((diff > tol + tol * xl.abs()).sum())
-        rel = float((kl - xl).pow(2).mean().sqrt() / xl.pow(2).mean().sqrt())
-        check(bad == 0 and rel <= REL_RMS_TOL,
-              f"{label}: {what}: kernel vs plain path, {bad} logits outside "
-              f"{tol}, max abs diff {float(diff.max()):.4f}, relative RMS "
-              f"{rel:.4f}")
-        return float(diff.max()), rel
+        return hold_logits(kl, xl, tol, f"{label}: {what}: kernel vs plain "
+                           "path")
 
     pre_err, pre_rel = compare(k_logits[0][:, :V], x_logits[0][:, :V],
                                PREFILL_TOL, "prefill logits")
@@ -2873,24 +2903,6 @@ def csv_row_finite(line: str) -> bool:
                                             for x in nums)
 
 
-def greedy_tap(log: list):
-    """A ``greedy_step`` that also logs (the order of the live rows, the
-    smallest gap between two live logits) of every greedy decision."""
-    import numpy as np
-    from repro_torch.core import agent as agent_mod
-    real = agent_mod.greedy_step
-
-    def tapped(net, ov, mask):
-        order = real(net, ov, mask)
-        logits = agent_mod.actor_logits(net, ov, mask).detach().cpu().numpy()
-        live = int((mask > 0).sum())
-        gaps = -np.diff(logits[order[:live]].astype(np.float64))
-        log.append((order[:live].tolist(),
-                    float(gaps.min()) if gaps.size else float("inf")))
-        return order
-    return tapped
-
-
 def paper_tables_phase(dev) -> dict:
     """26. the eight paper and stream benches of ``benchmarks_torch`` in
     this process on the card, the first assisted stream's first predictor
@@ -2898,7 +2910,6 @@ def paper_tables_phase(dev) -> dict:
     variant evaluated on the card and on the CPU."""
     import os
     import shutil
-    import numpy as np
     import torch
     os.environ.update({
         "REPRO_BENCH_TRAIN_BATCHES": str(PAPER_TRAIN_BATCHES),
@@ -2913,7 +2924,6 @@ def paper_tables_phase(dev) -> dict:
           f"benchmarks_torch imported from {benchmarks_torch.__file__}")
     from benchmarks_torch import bench_prediction, common
     from benchmarks_torch.run import SPECIAL, Split
-    from repro_torch.core import agent as agent_mod
     from repro_torch.kernels import ops, policy_mlp as pm, predict_mlp as qm
     check((common.TRAIN_BATCHES, common.EVAL_BATCHES) ==
           (PAPER_TRAIN_BATCHES, PAPER_EVAL_BATCHES),
@@ -2990,36 +3000,458 @@ def paper_tables_phase(dev) -> dict:
           f"{launches}; predict_mlp by arm {by_arm}", flush=True)
 
     # one cached agent per variant: the card's evaluate() against the CPU's
-    real_greedy = agent_mod.greedy_step
     for variant in PAPER_VARIANTS:
         runs = {}
         for device in (dev, "cpu"):
             log: list = []
             tr = common.get_trainer("philly", "fcfs", "wait", variant,
                                     device=device)
-            agent_mod.greedy_step = greedy_tap(log)
+            undo = greedy_logits_tap(log)
             try:
                 ev = tr.evaluate(num_batches=common.EVAL_BATCHES,
                                  batch_size=common.BATCH_SIZE)
             finally:
-                agent_mod.greedy_step = real_greedy
+                undo()
             runs[str(device)] = (ev, log)
         (ev_c, log_c), (ev_h, log_h) = runs[str(dev)], runs["cpu"]
-        n, first_tie, first_diff = first_tie_and_diff(
-            log_c, log_h, f"paper tables {variant}")
-        if first_diff is None:
+        same, line = hold_greedy(log_c, log_h, f"paper tables {variant}")
+        if same:
             check(len(log_c) == len(log_h) and ev_c == ev_h,
                   f"paper tables {variant}: the same decisions but card "
                   f"{ev_c} != CPU {ev_h}")
-        tie = f"first near-tie (gap < {NEAR_TIE}) at decision {first_tie}" \
-            if first_tie < n else f"no near-tie in {n} decisions"
-        same = "equal" if ev_c == ev_h else f"differ (CPU {ev_h})"
+        verdict = "equal" if ev_c == ev_h else f"differ (CPU {ev_h})"
         print(f"paper tables: philly/fcfs/wait/{variant} evaluate on the card "
-              f"{ev_c}: {len(log_c)} greedy decisions, "
-              f"{'all equal' if first_diff is None else f'first differ at {first_diff}'}"
-              f" to the CPU's; {tie}; evaluate() {same}", flush=True)
+              f"{ev_c}: {line}; evaluate() {verdict}", flush=True)
     shutil.rmtree(PAPER_AGENTS, ignore_errors=True)
     return launches
+
+
+
+# phase 27: the stream and control-plane benches (host only) and the
+# examples on the card
+HOST_BENCHES = ("streaming", "scale_curve", "preemption", "autoscaling",
+                "federation", "obs", "chaos")
+HOST_STREAM_JOBS = 1000          # bench_streaming.NUM_JOBS (quick: 10,000)
+#: the line each bench prints for its acceptance block
+HOST_VERDICTS = {"streaming": "# deep-queue growth",
+                 "scale_curve": "# p99 growth",
+                 "preemption": "# slo policy", "autoscaling": "# target-util",
+                 "federation": "# jsq", "obs": "# p99 overhead",
+                 "chaos": "# chaos wait-p99"}
+#: the acceptance verdicts that no clock reads, as the reference's benches
+#: give them at smoke size (tests/test_torch_control_benches.py holds the
+#: reference to these).  At 300 jobs the chaos arm's wait p99 lies outside
+#: its band in the reference too; the quick scale's 1,200 jobs hold it.  The
+#: obs verdicts read the clock and are only printed.
+HOST_GATES = {
+    "preemption": {"slo_lanes_improves_hit_rate": True,
+                   "slo_lanes_wait_within_band": True},
+    "autoscaling": {"diurnal_cuts_gpu_hours": True,
+                    "diurnal_wait_within_band": True,
+                    "flash_crowd_cuts_gpu_hours": True,
+                    "flash_crowd_wait_within_band": True},
+    "federation": {"jsq_beats_hash": True, "sku_affinity_beats_hash": True},
+    "chaos": {"ladder_fired": True, "wait_within_band": False},
+}
+EXAMPLE_BATCHES = 2              # quickstart --batches (default 25)
+EXAMPLE_ARCH = "jamba-v0.1-52b"  # serve_lm --arch: all three LM kernels
+
+
+def floats_finite(doc) -> bool:
+    import math
+    if isinstance(doc, dict):
+        return all(floats_finite(v) for v in doc.values())
+    if isinstance(doc, list):
+        return all(floats_finite(v) for v in doc)
+    return not isinstance(doc, float) or math.isfinite(doc)
+
+
+def zero_launches() -> dict:
+    """Sets every kernel's launch count to 0; returns the five modules."""
+    from repro_torch.kernels import flash_attention as fa, moe_router as mr
+    from repro_torch.kernels import policy_mlp as pm, predict_mlp as qm
+    from repro_torch.kernels import ssd_scan as ss
+    mods = {"policy_mlp": pm, "predict_mlp": qm, "flash_attention": fa,
+            "ssd_scan": ss, "moe_router": mr}
+    for m in mods.values():
+        m.launches = 0
+    return mods
+
+
+def host_benches_phase(dev) -> None:
+    """27 (a). ``benchmarks_torch.run`` over the seven stream and
+    control-plane benches at smoke size in this process, records under
+    ``build/``: every job completed, every float finite, the fleet's serial
+    and parallel runs identical, the trace valid and obs-off identical,
+    every acceptance block printed, its verdicts that read no clock as
+    HOST_GATES has them and the chaos ladder's MILP fallbacks above 0, and
+    no kernel launched (FCFS on the host, as the reference's benches)."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    from benchmarks_torch import run as bench_run
+    from benchmarks_torch.common import cpu_model
+    from repro_torch.obs import validate_trace
+    out_dir = ROOT / "build" / "chip_smoke_host_benches"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {name: out_dir / f"BENCH_{name}.json" for name in HOST_BENCHES}
+    for name, path in paths.items():
+        path.unlink(missing_ok=True)
+        importlib.import_module(f"benchmarks_torch.bench_{name}").JSON_PATH = \
+            str(path)
+    from benchmarks_torch import bench_obs, bench_streaming
+    bench_streaming.NUM_JOBS = HOST_STREAM_JOBS
+    bench_obs.TRACE_PATH = str(out_dir / "obs_trace.json")
+    bench_obs.PROM_PATH = str(out_dir / "obs_metrics.prom")
+    mods = zero_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_run.main([*HOST_BENCHES, "--smoke", "--device", dev.type])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    launches = {k: m.launches for k, m in mods.items()}
+    for line in text.splitlines():
+        if line.startswith(("-- ", "# ")) and "json artifact" not in line:
+            print(f"host benches: {line}")
+    check(rc == 0, f"host benches: benchmarks_torch.run exited {rc}")
+    check(all(n == 0 for n in launches.values()),
+          f"host benches launched kernels: {launches}")
+    missing = [n for n, v in HOST_VERDICTS.items() if v not in text]
+    check(not missing, f"host benches: no acceptance line from {missing}")
+    docs = {n: json.loads(p.read_text()) for n, p in paths.items()}
+    for name, doc in docs.items():
+        check(floats_finite(doc), f"host benches: {name} has a non-finite float")
+        check(doc["provenance"]["device"] == "host",
+              f"host benches: {name} provenance {doc['provenance']['device']}")
+    for name in ("streaming", "preemption", "autoscaling", "federation",
+                 "chaos"):
+        bad = {k: r["completed"] for k, r in docs[name]["results"].items()
+               if r["completed"] != docs[name]["num_jobs"]}
+        check(not bad, f"host benches: {name} incomplete rows {bad}")
+    sc = docs["scale_curve"]
+    check(all(r["completed"] == sc["num_jobs"]
+              for r in sc["window_curve"].values())
+          and all(r["completed"] == sc["trace_jobs"]
+                  for r in sc["trace_curve"].values())
+          and sc["fleet"]["completed"] == sc["fleet"]["num_jobs"],
+          "host benches: scale_curve incomplete")
+    check(sc["fleet"]["serial_parallel_identical"] is True
+          and sc["gates"]["fleet_serial_parallel_identical"] is True,
+          "host benches: the parallel fleet diverged from the serial one")
+    ob = docs["obs"]
+    check(all(r["completed"] == ob["num_jobs"] for r in ob["repeats"])
+          and ob["acceptance"]["obs_off_bit_identical"] is True,
+          "host benches: obs incomplete or obs-off not bit identical")
+    problems = validate_trace(json.loads((out_dir / "obs_trace.json")
+                                         .read_text()))
+    check(not problems, f"host benches: trace schema violations {problems[:3]}")
+    acc = {n: docs[n]["acceptance"] for n in ("preemption", "autoscaling",
+                                                "federation", "obs", "chaos")}
+    for name, want in HOST_GATES.items():
+        got = {k: acc[name][k] for k in want}
+        check(got == want, f"host benches: {name} verdicts {got}, the "
+              f"reference's at smoke size {want}")
+    check(acc["chaos"]["milp_fallbacks"] > 0,
+          "host benches: the chaos ladder made no MILP fallback")
+    print(f"host benches: host CPU {cpu_model()!r} x{os.cpu_count()}")
+    print(f"host benches: {len(HOST_BENCHES)} benches at smoke size "
+          f"(streaming {HOST_STREAM_JOBS} jobs) in {wall:.3f} s: all jobs "
+          f"completed, all floats finite, fleet {sc['fleet']['total_nodes']} "
+          f"nodes serial = parallel, trace valid ({ob['trace_events']} "
+          f"events), obs-off identical; launches {launches}; acceptance "
+          f"{json.dumps(acc, sort_keys=True)}", flush=True)
+
+
+def greedy_logits_tap(log: list):
+    """Patches ``greedy_step`` to log (the order of the live rows, the
+    smallest gap between two live logits) of every greedy decision, read
+    from the logits the decision's own ``ops.policy_mlp`` call returned (no
+    second launch).  Returns the function that undoes the patch."""
+    import numpy as np
+    from repro_torch.core import agent as agent_mod
+    from repro_torch.kernels import ops
+    real_greedy, real_op = agent_mod.greedy_step, ops.policy_mlp
+    seen: list = []
+
+    def op(x, params, mask):
+        seen.append(real_op(x, params, mask))
+        return seen[-1]
+
+    def greedy(net, ov, mask):
+        seen.clear()
+        ops.policy_mlp = op
+        try:
+            order = real_greedy(net, ov, mask)
+        finally:
+            ops.policy_mlp = real_op
+        logits = seen[-1].detach().cpu().numpy()
+        live = int((mask > 0).sum())
+        gaps = -np.diff(logits[order[:live]].astype(np.float64))
+        log.append((order[:live].tolist(),
+                    float(gaps.min()) if gaps.size else float("inf")))
+        return order
+
+    agent_mod.greedy_step = greedy
+
+    def undo():
+        agent_mod.greedy_step = real_greedy
+    return undo
+
+
+def hold_greedy(log_c: list, log_h: list, what: str) -> tuple[bool, str]:
+    """The card's greedy decisions against the CPU's up to the first
+    near-tie: (whether no decision both made differs, the line that says
+    how far they agree).  Where none differs the caller holds the two runs
+    to the same number of decisions and the same result."""
+    n, first_tie, first_diff = first_tie_and_diff(log_c, log_h, what)
+    tie = f"first near-tie (gap < {NEAR_TIE}) at decision {first_tie}" \
+        if first_tie < n else f"no near-tie in {n} decisions"
+    agree = "all equal" if first_diff is None \
+        else f"first differ at {first_diff}"
+    return first_diff is None, (f"{len(log_c)} greedy decisions, {agree} to "
+                                f"the CPU's; {tie}")
+
+
+def example_trainer(cls, log: dict, weights=None):
+    """A subclass of an example's trainer class that records its instance;
+    given ``weights`` (a ``state_dict``), its ``train`` loads them instead
+    of training."""
+    class Recorded(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            log["trainer"] = self
+
+        def train(self, *a, **kw):
+            if weights is None:
+                return super().train(*a, **kw)
+            self.agent.load_state_dict(weights)
+            return []
+    return Recorded
+
+
+def batch_signature(res) -> tuple:
+    return ((res.makespan, res.total_wait, res.gpu_seconds_used,
+             res.decisions, res.milp_calls, res.backfills, res.restarts),
+            sorted((j.job_id, j.start_time, j.finish_time, j.restarts)
+                   for j in res.jobs))
+
+
+def serve_tap(cls, rec: dict):
+    """A subclass of ``ServeEngine`` that keeps every batch's prefill and
+    decode logits (on the host, f32) and the model and params it serves."""
+    class Tapped(cls):
+        def __init__(self, model, params, **kw):
+            super().__init__(model, params, **kw)
+            rec.update(model=model, params=params, batch=self.B, logits=[])
+            real_prefill, real_decode = model.prefill, self._decode
+
+            def prefill(*a, **k):
+                logits, cache = real_prefill(*a, **k)
+                rec["logits"].append([logits.float().cpu()])
+                return logits, cache
+
+            def decode(*a):
+                tok, logits, cache = real_decode(*a)
+                rec["logits"][-1].append(logits.float().cpu())
+                return tok, logits, cache
+            model.prefill, self._decode = prefill, decode
+    return Tapped
+
+
+def examples_phase(dev) -> dict:
+    """27 (b). The four examples through their ``main`` on the card, each
+    held to the CPU: quickstart and cluster_failover (policy_mlp launches =
+    the RL decisions; the base / FCFS arms equal, the greedy RL arms equal
+    up to the first near-tie), serve_lm on jamba (all three LM kernels;
+    every step's logits held to the CPU's up to each request's first
+    differing token, which must be a near-tie), train_lm (the loss
+    falls, no kernel).  Returns each kernel's launches."""
+    import math
+    import torch
+    from benchmarks_torch.run import Split
+    from examples_torch import cluster_failover, quickstart, serve_lm
+    from examples_torch import train_lm
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request
+    from repro_torch.train.optimizer import map_tree
+
+    examples = {k: 0 for k in ("policy_mlp", "flash_attention", "ssd_scan",
+                               "moe_router")}
+
+    # ---- quickstart: train on the card, evaluate there and on the CPU ---
+    mods = zero_launches()
+    log_c: list = []
+    rec: dict = {}
+    real_cls = quickstart.RLTuneTrainer
+    quickstart.RLTuneTrainer = example_trainer(real_cls, rec)
+    undo = greedy_logits_tap(log_c)
+    t0 = time.perf_counter()
+    try:
+        with Split() as split:
+            ev_c = quickstart.main(["--batches", str(EXAMPLE_BATCHES),
+                                    "--device", dev.type])
+            torch.cuda.synchronize()
+    finally:
+        undo()
+        quickstart.RLTuneTrainer = real_cls
+    wall = time.perf_counter() - t0
+    n_pm = mods["policy_mlp"].launches
+    decisions = split.calls["act"]
+    check(decisions > 0 and n_pm == decisions,
+          f"quickstart: policy_mlp launches {n_pm} != RL decisions {decisions}")
+    examples["policy_mlp"] += n_pm
+    tr = rec["trainer"]
+    check(tr.agent.device.type == dev.type, "quickstart: the agent is not on "
+          f"{dev}")
+    cpu = real_cls(tr.cfg, device="cpu")
+    cpu.agent.load_state_dict(tr.agent.state_dict())
+    log_h: list = []
+    undo = greedy_logits_tap(log_h)
+    try:
+        ev_h = cpu.evaluate(num_batches=5)
+    finally:
+        undo()
+    same, line = hold_greedy(log_c, log_h, "quickstart")
+    check(ev_c["base"] == ev_h["base"],
+          f"quickstart: base arm card {ev_c['base']} != CPU {ev_h['base']}")
+    if same:
+        check(len(log_c) == len(log_h) and ev_c["rl"] == ev_h["rl"],
+              f"quickstart: the same decisions but card {ev_c['rl']} != CPU "
+              f"{ev_h['rl']}")
+    print(f"examples: quickstart --batches {EXAMPLE_BATCHES} on the card in "
+          f"{wall:.3f} s: {split.line()}; evaluate {ev_c}; base arm equal to "
+          f"the CPU's; rl arm {'equal' if ev_c['rl'] == ev_h['rl'] else f'CPU {ev_h}'}"
+          f"; {line}", flush=True)
+
+    # ---- cluster_failover: the card's run, then the CPU's with its weights
+    mods = zero_launches()
+    log_c, rec = [], {}
+    real_cls = cluster_failover.RLTuneTrainer
+    cluster_failover.RLTuneTrainer = example_trainer(real_cls, rec)
+    undo = greedy_logits_tap(log_c)
+    t0 = time.perf_counter()
+    try:
+        with Split() as split:
+            res_c = cluster_failover.main(["--device", dev.type])
+            torch.cuda.synchronize()
+    finally:
+        undo()
+        cluster_failover.RLTuneTrainer = real_cls
+    wall = time.perf_counter() - t0
+    n_pm = mods["policy_mlp"].launches
+    decisions = split.calls["act"]
+    check(decisions > 0 and n_pm == decisions,
+          f"cluster_failover: policy_mlp launches {n_pm} != RL decisions "
+          f"{decisions}")
+    examples["policy_mlp"] += n_pm
+    weights = rec["trainer"].agent.state_dict()
+    log_h, rec_h = [], {}
+    cluster_failover.RLTuneTrainer = example_trainer(real_cls, rec_h, weights)
+    undo = greedy_logits_tap(log_h)
+    try:
+        res_h = cluster_failover.main(["--device", "cpu"])
+    finally:
+        undo()
+        cluster_failover.RLTuneTrainer = real_cls
+    check(batch_signature(res_c["fcfs"]) == batch_signature(res_h["fcfs"]),
+          "cluster_failover: the fcfs arm differs from the CPU's")
+    same, line = hold_greedy(log_c, log_h, "cluster_failover")
+    if same:
+        check(len(log_c) == len(log_h) and
+              batch_signature(res_c["rltune"]) ==
+              batch_signature(res_h["rltune"]),
+              "cluster_failover: the same decisions but another rltune arm")
+    same_rl = batch_signature(res_c["rltune"]) == \
+        batch_signature(res_h["rltune"])
+    print(f"examples: cluster_failover on the card in {wall:.3f} s: "
+          f"{split.line()}; fcfs jct {res_c['fcfs'].avg_jct:.1f} s restarts "
+          f"{res_c['fcfs'].restarts}, rltune jct {res_c['rltune'].avg_jct:.1f}"
+          f" s restarts {res_c['rltune'].restarts}; fcfs BatchResult equal to "
+          f"the CPU's, rltune {'equal' if same_rl else 'differs'}; {line}",
+          flush=True)
+
+    # ---- serve_lm: jamba's smoke config on the card, then on the CPU ----
+    mods = zero_launches()
+    rec_c: dict = {}
+    real_engine = serve_lm.ServeEngine
+    serve_lm.ServeEngine = serve_tap(real_engine, rec_c)
+    t0 = time.perf_counter()
+    try:
+        done_c = serve_lm.main(["--arch", EXAMPLE_ARCH, "--device", dev.type])
+        torch.cuda.synchronize()
+    finally:
+        serve_lm.ServeEngine = real_engine
+    wall = time.perf_counter() - t0
+    lm = {k: mods[k].launches for k in ("flash_attention", "ssd_scan",
+                                        "moe_router")}
+    check(all(n > 0 for n in lm.values()),
+          f"serve_lm: an LM kernel was not launched: {lm}")
+    for k, n in lm.items():
+        examples[k] += n
+    model_c = rec_c["model"]
+    cfg = model_c.cfg
+    model_h = build_model(cfg, device="cpu")
+    params_h = map_tree(lambda t: t.detach().cpu(), rec_c["params"])
+    rec_h: dict = {}
+    engine_h = serve_tap(real_engine, rec_h)(model_h, params_h,
+                                             batch_size=rec_c["batch"],
+                                             device="cpu")
+    done_h = engine_h.run([Request(req_id=r.req_id, prompt=list(r.prompt),
+                                   max_new_tokens=r.max_new_tokens)
+                           for r in done_c])
+    V, B = cfg.vocab_size, rec_c["batch"]
+    agree, worst, worst_rel, notes = 0, 0.0, 0.0, []
+    for i, (a, b) in enumerate(zip(done_c, done_h)):
+        kl, hl = rec_c["logits"][i // B], rec_h["logits"][i // B]
+        row = i % B
+        for s in range(len(a.output)):      # step s gives token s
+            k, h = kl[s][row, :V], hl[s][row, :V]
+            err, rel = hold_logits(
+                k, h, PREFILL_TOL if s == 0 else DECODE_TOL,
+                f"serve_lm: request {a.req_id} step {s}, card vs CPU")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            if a.output[s] != b.output[s]:
+                gap = float(k[a.output[s]] - k[b.output[s]])
+                check(gap < LM_NEAR_TIE,
+                      f"serve_lm: request {a.req_id} token {s}: card "
+                      f"{a.output[s]}, CPU {b.output[s]}, card logit gap "
+                      f"{gap:.5f} is no near-tie (< {LM_NEAR_TIE})")
+                notes.append(f"req {a.req_id} token {s}: {a.output[s]} vs "
+                             f"{b.output[s]}, card logit gap {gap:.5f}")
+                break
+            agree += 1
+    total = sum(len(r.output) for r in done_c)
+    rms = float(torch.cat([bl[0][:, :V].flatten() for bl in rec_h["logits"]])
+                .pow(2).mean().sqrt())
+    print(f"examples: serve_lm --arch {EXAMPLE_ARCH} ({cfg.dtype}) on the card "
+          f"in {wall:.3f} s: {len(done_c)} requests, {total} tokens; "
+          f"launches {lm}; tokens equal to the CPU's on {agree} of {total} up "
+          f"to each request's first differing token, each a near-tie (card "
+          f"gap < {LM_NEAR_TIE}): {notes or 'none'}; logits up to there "
+          f"within {PREFILL_TOL} / {DECODE_TOL} abs+rel and {REL_RMS_TOL} "
+          f"relative RMS: max abs diff {worst:.6f}, relative RMS "
+          f"{worst_rel:.6f}, CPU prefill logits' RMS {rms:.6f}", flush=True)
+
+    # ---- train_lm: example-15m, its 60 default steps, the plain path ----
+    mods = zero_launches()
+    t0 = time.perf_counter()
+    out = train_lm.main(["--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_all = {k: m.launches for k, m in mods.items()}
+    losses = out["losses"]
+    check(all(n == 0 for n in n_all.values()),
+          f"train_lm launched kernels: {n_all}")
+    check(all(math.isfinite(x) for x in losses + out["gnorms"])
+          and out["final_loss"] < losses[0],
+          f"train_lm: losses {losses[0]} -> {out['final_loss']}")
+    print(f"examples: train_lm (example-15m, {len(losses)} steps) on the card "
+          f"in {wall:.3f} s: loss {losses[0]:.4f} -> {out['final_loss']:.4f}, "
+          f"step s p50 {sorted(out['step_s'])[len(out['step_s']) // 2]:.4f}; "
+          f"launches {n_all}", flush=True)
+    return examples
 
 
 
@@ -3338,7 +3770,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paper = paper_tables_phase(dev)
     print(f"paper tables: phase 26 took {time.perf_counter() - t0:.3f} s")
-    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - T_START:.3f} s")
+
+    # ------------------------------- 27. host benches and the examples --
+    t0 = time.perf_counter()
+    host_benches_phase(dev)
+    examples = examples_phase(dev)
+    print(f"examples: phase 27 took {time.perf_counter() - t0:.3f} s")
+    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - T_START:.3f} s")
 
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
@@ -3356,7 +3794,8 @@ def main() -> int:
                              "fleet-check": fleet_check["policy_mlp"],
                              "control-plane": control["policy_mlp"],
                              f"platform-{PLATFORM_JOBS}": platform["launches"],
-                             "paper-tables": paper["policy_mlp"]},
+                             "paper-tables": paper["policy_mlp"],
+                             "examples": examples["policy_mlp"]},
         "max_abs_err": max(max_err, platform["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3386,9 +3825,10 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces,
         "launches": lm_launches[name],
-        **({"launches_by_path": {"jamba-superblock-serve": lm_launches[name],
-                                 "granite-trained-serve": served[name]}}
-           if name in served else {}),
+        "launches_by_path": {"jamba-superblock-serve": lm_launches[name],
+                             **({"granite-trained-serve": served[name]}
+                                if name in served else {}),
+                             "examples": examples[name]},
         "max_abs_err": lm_rows[name]["max_abs_err"],
         "ms": lm_rows[name]["ms"],
         "plain_ms": lm_rows[name]["plain_ms"],

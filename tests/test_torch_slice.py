@@ -237,7 +237,9 @@ assert not bad, bad
 for name in ("common", "run", "bench_latency", "bench_variability",
              "bench_naive_vs_pro", "bench_util", "bench_transfer",
              "bench_qssf", "bench_policies", "bench_prediction",
-             "bench_rl_streaming"):
+             "bench_rl_streaming", "bench_streaming", "bench_scale_curve",
+             "bench_preemption", "bench_autoscaling", "bench_federation",
+             "bench_obs", "bench_chaos"):
     assert "benchmarks_torch." + name in names, name
 """
     env = dict(os.environ)
@@ -264,6 +266,50 @@ for name in ("common", "run", "bench_latency", "bench_variability",
                         if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                                "benchmarks")]
     assert not bad, bad
+
+
+def test_port_examples_import_neither_jax_nor_repro():
+    """Every example of ``examples_torch`` imported in a fresh interpreter
+    loads no jax*, no repro.* and nothing of the reference's ``benchmarks``
+    or ``examples``; and no source there imports them at any depth."""
+    code = r"""
+import importlib, sys
+names = ["examples_torch"] + ["examples_torch." + n for n in
+         ("quickstart", "cluster_failover", "serve_lm", "train_lm")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro", "benchmarks", "examples")
+             or m.startswith(("jax.", "jaxlib", "repro.", "benchmarks.",
+                              "examples.")))
+print(len(names), bad)
+assert not bad, bad
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("[]")
+    bad, seen = [], 0
+    root = os.path.join(REPO, "examples_torch")
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            seen += 1
+            path = os.path.join(dirpath, fname)
+            for node in ast.walk(ast.parse(open(path).read(), path)):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                bad += [f"{path}:{node.lineno} {m}" for m in mods
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                               "benchmarks", "examples")]
+    assert seen == 5 and not bad, (seen, bad)
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
