@@ -93,18 +93,19 @@ def _git_sha() -> str:
     return "unknown"
 
 
-def provenance(seed: int | None = None, host_only: bool = False) -> dict:
+def provenance(seed: int | None = None, host_only: bool = False,
+               device: str | None = None) -> dict:
     """Provenance stamp for ``benchmarks_torch/BENCH_*.json``: the code,
     the toolchain (torch, CUDA), the card (its name and power limit as
     ``nvidia-smi`` gives them; ``None`` when the benches run on the CPU),
     the host CPU, the knobs and the time.  A ``host_only`` bench puts no
     tensor on any device: its device is ``"host"`` and it names no card,
-    whatever ``--device`` says."""
+    whatever ``--device`` says; ``device`` overrides ``bench_device()``."""
     import numpy
     import torch
 
     from benchmarks_torch.bench_latency import nvidia_smi_line
-    device = "host" if host_only else bench_device()
+    device = "host" if host_only else device or bench_device()
     on_card = device.startswith("cuda")
     stamp = {
         "git_sha": _git_sha(),

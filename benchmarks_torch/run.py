@@ -4,9 +4,11 @@ the stream and control-plane benches.
     PYTHONPATH=src python -m benchmarks_torch.run [module ...] [--smoke] [--rss] [--device cuda|cpu]
 
 The analog of ``benchmarks/run.py`` over the port's benches (``MODULES``:
-latency, variability, naive, qssf, util, transfer, policies, rl_streaming,
-prediction, streaming, scale_curve, preemption, autoscaling, federation,
-obs, chaos).
+latency, kernels, roofline, variability, naive, qssf, util, transfer,
+policies, rl_streaming, prediction, streaming, scale_curve, preemption,
+autoscaling, federation, obs, chaos: every module of the reference's;
+its hillclimb is a CLI of its own, ``python -m
+benchmarks_torch.hillclimb``, as there).
 Prints human-readable tables plus ``name,us_per_call,derived`` CSV rows at
 the end.  ``--smoke`` runs every selected module that supports it in its
 fast mode (modules whose ``run`` accepts a ``smoke`` kwarg); ``--rss``
@@ -33,11 +35,12 @@ import sys
 import threading
 import time
 
-MODULES = ("latency", "variability", "naive", "qssf", "util", "transfer",
-           "policies", "rl_streaming", "prediction", "streaming",
-           "scale_curve", "preemption", "autoscaling", "federation", "obs",
-           "chaos")
-SPECIAL = {"naive": "benchmarks_torch.bench_naive_vs_pro"}
+MODULES = ("latency", "kernels", "roofline", "variability", "naive", "qssf",
+           "util", "transfer", "policies", "rl_streaming", "prediction",
+           "streaming", "scale_curve", "preemption", "autoscaling",
+           "federation", "obs", "chaos")
+SPECIAL = {"roofline": "benchmarks_torch.roofline",
+           "naive": "benchmarks_torch.bench_naive_vs_pro"}
 
 
 class Split:

@@ -181,7 +181,23 @@ the CUDA toolkit (``nvcc``).  Phases, each reporting on its own lines:
     shapes; the card's tokens and logits against a CPU run with the same
     weights up to each request's first differing token, at phase 15's
     tolerances) and ``train_lm`` (example-15m, 60 steps: the loss falls,
-    no kernel launched).
+    no kernel launched);
+28. LM-side benches: (a) every row of ``benchmarks_torch.bench_kernels``
+    on the card (its record under the git-ignored
+    ``build/chip_smoke_dryrun/``): the reference's three rows and each
+    kernel at the main path's shapes, each held against its plain version
+    (a failed check raises) and timed beside its plain version, its bound
+    and, for attention, SDPA, with the card's name and power limit; every
+    kernel launched; (b) dry-run traces on fake 256-rank worlds in
+    processes of their own, started after the build (they use the host's
+    CPU only) and read here: a Shard(0) -> Shard(1) redistribution in the
+    dry run's window counted as one all-to-all of the local bytes and no
+    all-gather; ``whisper-tiny`` x ``decode_32k``, whose caches are split
+    along their length, moving no cache shard; ``mamba2-780m`` x
+    ``train_4k`` tracing; then the roofline
+    table of these records and phase 25's; (c) the ``mamba2`` hillclimb
+    cell's four experiments (its baseline is (b)'s trace), each one's
+    collective bytes by kind beside the baseline's.
 
 Then one JSON line describing all five kernels (times, launches, bounds;
 ``launches_by_path`` gives each kernel's launches on each path it runs
@@ -203,10 +219,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+from benchmarks_torch.kernel_timing import (  # noqa: E402
+    ATOL, LM_TOL, bound, flash_bound, graph_ms, predict_bound, router_bound,
+    router_check, ssd_bound)
 T_START = time.perf_counter()
 SRC = ROOT / "src"
 
-ATOL = 1e-5
 QS = (256, 300, 2304, 4096, 16384)
 SHAPES = ((8, 64, 32), (8, 32, 16))
 MAIN_Q = 4096                    # the deepest tail bucket of the main path
@@ -218,9 +237,6 @@ PREDICT_SHAPE = (21, 24, 12, 2)
 MAIN_B = 2560                    # the saturated queue window of the stream
 STREAM_JOBS = 10000
 CHECK_PREDICTS = 200
-# H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -248,52 +264,6 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
-    """Device time of one call: ``calls`` calls captured into a CUDA graph
-    and replayed, so host-side dispatch does not enter the time."""
-    import torch
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
-
-
-def bound(Q: int, n_live: int, F: int, H1: int, H2: int) -> tuple[float, str]:
-    """Least time (ms) for the fused MLP on the H100: the operations the
-    unmasked rows need (2 per multiply-add) over the f32 peak, or every
-    input read once and the output written once over the memory rate."""
-    flops = 2.0 * (F * H1 + H1 * H2 + H2) * n_live
-    nbytes = 4.0 * (Q * F + Q + Q + F * H1 + H1 + H1 * H2 + 2 * H2 + 1)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def predict_bound(B: int, F: int, H1: int, H2: int, Q: int) -> tuple[float, str]:
-    """Least time (ms) for the predictor MLP on the H100: its operations (2
-    per multiply-add) over the f32 peak, or every input read once and the
-    output written once over the memory rate."""
-    flops = 2.0 * (F * H1 + H1 * H2 + H2 * Q) * B
-    nbytes = 4.0 * (B * F + B * Q + F * H1 + H1 + H1 * H2 + H2 + H2 * Q + Q)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_calls(obj, name: str, acc: list) -> None:
@@ -607,88 +577,9 @@ PREFILL_TOL, DECODE_TOL, REL_RMS_TOL = 0.15, 0.2, 0.1
 # the other run's (phase 27's jamba smoke logits have an RMS of about 0.35,
 # and the H100's differ from the CPU's by at most about 0.006)
 LM_NEAR_TIE = 0.05
-PEAK_BF16_FLOPS = 989e12
 # a zero_ of this many bytes between router calls evicts the 50 MB L2, as
 # the expert GEMMs between two router calls of the served model do
 L2_FLUSH_BYTES = 128 << 20
-LM_TOL = {"float32": {"flash_attention": 2e-5, "ssd_scan": 2e-3},
-          "bfloat16": {"flash_attention": 2e-2, "ssd_scan": 2e-2}}
-
-
-def lm_bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def flash_bound(B, H, KV, L, D, window, dtype) -> tuple[float, str]:
-    """q.k and p.v over the (query, key) pairs the mask keeps (2 FLOP per
-    multiply-add each), against q, k, v and o moved once."""
-    import torch
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(L))
-    flops = 4.0 * B * H * D * pairs
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * B * L * D * (2 * H + 2 * KV)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    return lm_bound(flops, nbytes, peak)
-
-
-def ssd_bound(B, L, H, P, N, chunk, dtype) -> tuple[float, str]:
-    """The chunked SSD's products at the reference's chunk: C.B^T per
-    (batch, chunk), the lower-triangular W.x, the state's share C.S and
-    the state update per (batch, head, chunk); against x, dt, B, C and y
-    moved once and the final state written once."""
-    import torch
-    Q = min(chunk, L)
-    nc = L // Q
-    flops = B * nc * (2.0 * Q * Q * N
-                      + H * (Q * (Q + 1) * P + 4.0 * Q * P * N))
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (size * (2 * B * L * H * P + 2 * B * L * N) + 4 * B * L * H
-              + 4 * H + 4 * B * H * P * N)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    return lm_bound(flops, nbytes, peak)
-
-
-def router_bound(T, d, E, k, dtype) -> tuple[float, str]:
-    """x.W in f32 (W is f32): f32 FMAs, or for bf16 x three exact bf16
-    products on the tensor cores (W split in three bf16 parts), whichever
-    the card does sooner; against x and W read once and the weights and
-    indices written once (the top-k passes are negligible)."""
-    import torch
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * T * d + 4 * d * E + 8 * T * k
-    if dtype == torch.bfloat16:
-        return lm_bound(3 * 2.0 * T * d * E, nbytes, PEAK_BF16_FLOPS)
-    return lm_bound(2.0 * T * d * E, nbytes, PEAK_F32_FLOPS)
-
-
-def router_check(x, w, k, got_w, got_i) -> float:
-    """Where the k-th and (k+1)-th plain logits are more than 1e-4 apart,
-    the kernel picks the same set of experts with weights within 1e-5 (in
-    its order); where every gap among the top k + 1 exceeds 1e-4, the same
-    experts in the same order.  Returns the weights' max abs error on the
-    rows held."""
-    import torch
-    from repro_torch.kernels.ref import moe_router_ref
-    want_w, want_i = moe_router_ref(x, w, k)
-    E = w.shape[1]
-    top = torch.sort(x.float() @ w, dim=-1, descending=True).values
-    gaps = top[:, :min(k + 1, E)].diff(dim=-1).neg()
-    set_sep = gaps[:, k - 1] > 1e-4 if k < E else torch.ones_like(top[:, 0],
-                                                                 dtype=bool)
-    ord_sep = (gaps > 1e-4).all(dim=-1)
-    check(bool(set_sep.float().mean() > 0.9) or len(set_sep) < 100,
-          f"router: only {int(set_sep.sum())} of {len(set_sep)} rows separated")
-    what = f"T={x.shape[0]} E={E} k={k}"
-    check(torch.equal(got_i[set_sep].sort(dim=-1).values,
-                      want_i[set_sep].sort(dim=-1).values),
-          f"router expert sets differ at {what}")
-    check(torch.equal(got_i[ord_sep], want_i[ord_sep]),
-          f"router expert order differs at {what}")
-    err = float((got_w - want_w)[set_sep].abs().max()) if bool(set_sep.any()) else 0.0
-    check(err <= 1e-5, f"router weights differ by {err:.3e} > 1e-5 at {what}")
-    return err
-
 
 def lm_kernel_phase(dev) -> dict:
     """Phase 13.  Returns {kernel: row of the JSON record at the serve
@@ -2851,6 +2742,9 @@ def platform_rank(out: Path) -> None:
         dist.destroy_process_group()
     check(rec["dominant"] in ("compute_s", "memory_s", "collective_s"),
           f"dry run: {rec['dominant']}")
+    (DRYRUN_DIR / "singlepod").mkdir(parents=True, exist_ok=True)
+    (DRYRUN_DIR / "singlepod" / f"{TRAIN_ARCH}__train_4k.json").write_text(
+        json.dumps(rec, indent=1))
     print(f"platform: dry run {TRAIN_ARCH} x train_4k on the fake 16x16 mesh "
           f"(256 ranks, microbatches {rec['microbatches']}), analytic at H100 "
           f"rates: compute {rec['compute_s'] * 1e3:.3f} ms memory "
@@ -3455,6 +3349,177 @@ def examples_phase(dev) -> dict:
 
 
 
+# phase 28: the LM-side benches.  (a) bench_kernels on the card; (b) and
+# (c) dry-run traces on a fake 256-rank world, each in a process of its own
+# started after the build (they need the host's CPU only), read here:
+# whisper-tiny x decode_32k with the all-to-all check, and the mamba2
+# hillclimb cell's four experiments, its baseline being (b)'s mamba2-780m x
+# train_4k; then the roofline table of their records and phase 25's
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+TRACES = ("whisper", "baseline", "tp_only", "tp_only_mb1", "dp_only_mb1")
+TRACE_DEADLINE_S = 1120          # from the start of the run
+
+
+def trace_rank(out: Path) -> None:
+    """28 (b)/(c) in the background: ``out.stem`` names the trace."""
+    import torch
+    import torch.distributed as dist
+    from benchmarks_torch import hillclimb
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.roofline import CollectiveCounter
+    tag = out.stem
+    dryrun.init_fake_world(256)
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        if tag != "whisper":
+            recs = hillclimb.run_cell("mamba2", mesh=mesh, tags={tag},
+                                      art=str(out.parent / tag))
+            out.write_text(json.dumps(recs))
+            return
+        # torch's Shard -> Shard step inside the dry run's window: one
+        # all-to-all of the local bytes, as NCCL issues it
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import Shard, distribute_tensor
+        flat = init_device_mesh("cpu", (256,), mesh_dim_names=("model",))
+        with FakeTensorMode():
+            d = distribute_tensor(torch.empty(1024, 1024), flat, [Shard(0)])
+            counter = CollectiveCounter()
+            with counter, dryrun.card_alltoall():
+                d.redistribute(flat, [Shard(1)])
+        unit = counter.record()
+        rec = dryrun.lower_cell("whisper-tiny", "decode_32k", mesh)
+        out.write_text(json.dumps({"unit": unit, "whisper": rec}))
+    finally:
+        dist.destroy_process_group()
+
+
+PHASES["trace"] = trace_rank
+
+
+def start_traces() -> list:
+    """Start phase 28's traces, one process each; they are killed at exit
+    if still running."""
+    import atexit
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    (DRYRUN_DIR / "traces").mkdir(parents=True)
+    procs = []
+    for tag in TRACES:
+        out = DRYRUN_DIR / "traces" / f"{tag}.json"
+        log = open(out.with_suffix(".log"), "w")
+        procs.append((tag, out, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "trace",
+             str(out)], stdout=log, stderr=subprocess.STDOUT)))
+        log.close()
+    atexit.register(lambda: [p.kill() for _, _, p in procs
+                             if p.poll() is None])
+    return procs
+
+
+def bench_kernels_phase(dev) -> dict:
+    """28 (a): every row of ``benchmarks_torch.bench_kernels`` on the card,
+    each kernel held against its plain version at every row's shape; the
+    record goes to the git-ignored ``build/``.  Returns each kernel's
+    launches in the bench."""
+    from benchmarks_torch import bench_kernels
+    from repro_torch.kernels import (flash_attention, moe_router, policy_mlp,
+                                     predict_mlp, ssd_scan)
+    mods = dict(policy_mlp=policy_mlp, predict_mlp=predict_mlp,
+                flash_attention=flash_attention, ssd_scan=ssd_scan,
+                moe_router=moe_router)
+    bench_kernels.JSON_PATH = str(DRYRUN_DIR / "BENCH_kernels.json")
+    for m in mods.values():
+        m.launches = 0
+    rows: list[str] = []
+    doc = bench_kernels.run(rows, device=str(dev))
+    launches = {k: m.launches for k, m in mods.items()}
+    check(len(doc["rows"]) == len(bench_kernels.cases()),
+          f"bench kernels: {len(doc['rows'])} rows")
+    for r in doc["rows"]:
+        check(r["us"] is not None and r["us"] > 0 and r["launches"] > 0
+              and r["max_abs_err"] is not None,
+              f"bench kernels: row {r['name']} {r}")
+    for k, n in launches.items():
+        check(n > 0 and n == sum(r["launches"] for r in doc["rows"]
+                                 if r["kernel"] == k),
+              f"bench kernels: {k} launched {n} times")
+    print(f"bench kernels: {len(doc['rows'])} rows on "
+          f"{doc['provenance']['nvidia_smi']}; launches {launches}")
+    return launches
+
+
+def lm_benches_phase(dev, procs: list) -> dict:
+    """28: (a) in this process, then the background traces' results."""
+    import torch
+    launches = bench_kernels_phase(dev)
+    torch.cuda.empty_cache()
+    deadline = T_START + TRACE_DEADLINE_S
+    for tag, out, p in procs:
+        try:
+            rc = p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = None
+        log = out.with_suffix(".log").read_text()
+        check(rc == 0, f"trace {tag}: exit {rc}:\n{log[-3000:]}")
+    res = {tag: json.loads(out.read_text()) for tag, out, _ in procs}
+    unit, wrec = res["whisper"]["unit"], res["whisper"]["whisper"]
+    check(unit["all-to-all"] == 1024 * 4 * 4 and unit["all-gather"] == 0
+          and unit["_counts"]["all-to-all"] == 1,
+          f"dry run: Shard -> Shard on 256 ranks counted {unit}")
+    # whisper's caches are split along their length: the new token is
+    # written where its slot lies, so no cache shard moves
+    check(wrec["collective_counts"]["all-to-all"] == 0
+          and not any("8x6x2048x64" in op for op in wrec["collective_by_op"])
+          and wrec["collective_bytes"]["all-gather"]
+          < wrec["memory"]["cache_bytes"],
+          f"dry run: whisper decode moves a cache: "
+          f"{wrec['collective_bytes']} {list(wrec['collective_by_op'])[:4]}")
+    print(f"lm benches: torch {torch.__version__}: a Shard(0) -> Shard(1) "
+          f"redistribution of 1024 x 1024 f32 over 256 ranks in the dry "
+          f"run's window: {unit['all-to-all']} B in "
+          f"{unit['_counts']['all-to-all']} all-to-all, "
+          f"{unit['all-gather']} B all-gathered")
+    base = res["baseline"][0]
+    check("error" not in base, f"mamba2 baseline: {base.get('error')}")
+    check(base["dominant"] in ("compute_s", "memory_s", "collective_s")
+          and base["collective_total"] > 0 and base["hlo_flops_per_chip"] > 0,
+          f"mamba2 train_4k: {base['dominant']} {base['collective_total']}")
+    (DRYRUN_DIR / "singlepod").mkdir(parents=True, exist_ok=True)
+    for rec in (base, wrec):
+        (DRYRUN_DIR / "singlepod" / f"{rec['arch']}__{rec['shape']}.json"
+         ).write_text(json.dumps(rec, indent=1))
+    for rec in [wrec] + [res[t][0] for t in TRACES[1:]]:
+        name = rec.get("tag", "whisper decode_32k")
+        if "error" in rec:
+            print(f"lm benches: hillclimb mamba2/{name} raised {rec['error']}")
+            continue
+        by = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                       rec["collective_bytes"].items() if v)
+        vs = ("" if name in ("baseline", "whisper decode_32k") else
+              f" (baseline {base['collective_total'] / 1e9:.3f} GB: " +
+              ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                        base["collective_bytes"].items() if v) + ")")
+        print(f"lm benches: {rec['arch']} x {rec['shape']} {name}: "
+              f"traced in {rec['trace_s']} s, microbatches "
+              f"{rec['microbatches']}; collectives a chip {by}{vs}; counts "
+              f"{rec['collective_counts']}; compute "
+              f"{rec['compute_s'] * 1e3:.3f} ms memory "
+              f"{rec['memory_s'] * 1e3:.3f} ms collective "
+              f"{rec['collective_s'] * 1e3:.3f} ms, dominant "
+              f"{rec['dominant']}, peak step "
+              f"{rec['memory']['peak_step_bytes'] / 2**30:.3f} GiB")
+    from benchmarks_torch import roofline
+    rows: list[str] = []
+    roofline.run(rows, root=str(DRYRUN_DIR))
+    check(len(rows) == 3, f"roofline: {rows}")
+    for r in rows:
+        print(f"lm benches: roofline row {r}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3499,6 +3564,7 @@ def main() -> int:
                   f"{mod.SOURCE.relative_to(ROOT)} in {fut.result():.2f} s -> "
                   f"{mod.library_path().relative_to(ROOT)}")
     print(f"build: all five kernels in {time.perf_counter() - t0:.2f} s")
+    procs = start_traces()
 
     # ------------------------------------------ 3. kernel vs plain version --
     gen = torch.Generator().manual_seed(0)
@@ -3776,7 +3842,13 @@ def main() -> int:
     host_benches_phase(dev)
     examples = examples_phase(dev)
     print(f"examples: phase 27 took {time.perf_counter() - t0:.3f} s")
-    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - T_START:.3f} s")
+
+    # ---------------------------------------------- 28. LM-side benches --
+    t0 = time.perf_counter()
+    bench = lm_benches_phase(dev, procs)
+    print(f"lm benches: phase 28 took {time.perf_counter() - t0:.3f} s in "
+          "this process (its traces ran in the background from phase 3)")
+    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - T_START:.3f} s")
 
     # --------------------------------------------------------- the record --
     ms, plain_ms, b_ms, b_by = timings[(MAIN_Q, 8, 64, 32)]
@@ -3795,7 +3867,8 @@ def main() -> int:
                              "control-plane": control["policy_mlp"],
                              f"platform-{PLATFORM_JOBS}": platform["launches"],
                              "paper-tables": paper["policy_mlp"],
-                             "examples": examples["policy_mlp"]},
+                             "examples": examples["policy_mlp"],
+                             "bench-kernels": bench["policy_mlp"]},
         "max_abs_err": max(max_err, platform["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3812,7 +3885,8 @@ def main() -> int:
                              "fleet": fleet["launches"],
                              "fleet-check": fleet_check["predict_mlp"],
                              "control-plane": control["predict_mlp"],
-                             "paper-tables": paper["predict_mlp"]},
+                             "paper-tables": paper["predict_mlp"],
+                             "bench-kernels": bench["predict_mlp"]},
         "max_abs_err": max(q_err, q["max_abs_err"], fleet["max_abs_err"]),
         "ms": q_ms,
         "plain_ms": q_plain_ms,
@@ -3828,7 +3902,8 @@ def main() -> int:
         "launches_by_path": {"jamba-superblock-serve": lm_launches[name],
                              **({"granite-trained-serve": served[name]}
                                 if name in served else {}),
-                             "examples": examples[name]},
+                             "examples": examples[name],
+                             "bench-kernels": bench[name]},
         "max_abs_err": lm_rows[name]["max_abs_err"],
         "ms": lm_rows[name]["ms"],
         "plain_ms": lm_rows[name]["plain_ms"],

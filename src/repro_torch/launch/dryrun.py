@@ -5,8 +5,10 @@ A ``fake`` process group of 256 (16x16) or 512 (2x16x16) ranks stands in
 for the cluster, and ``FakeTensorMode`` for memory: parameters, optimizer
 state, caches and the batch are DTensors over fake local shards, so
 nothing is allocated, and one train step, prefill or decode runs on them
-as the sharded program would on one rank.  That proves the sharding is
-coherent (every op propagates, every spec divides) and records, as JSON
+as the sharded program would on one rank (a Shard -> Shard redistribution
+issued as the card's all-to-all, ``card_alltoall``, not as the ``cpu``
+mesh's all-gather).  That proves the sharding is coherent (every op
+propagates, every spec divides) and records, as JSON
 under ``benchmarks_torch/artifacts/dryrun/{singlepod,multipod}/``, the
 reference's record: analytic compute / memory seconds at H100 rates, the
 collective bytes the step issued per chip (``CollectiveCounter``), the
@@ -26,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -75,6 +78,36 @@ def init_fake_world(world_size: int) -> None:
                             world_size=world_size)
 
 
+@contextlib.contextmanager
+def card_alltoall():
+    """While open, DTensor's Shard(i) -> Shard(j) step issues the all-to-all
+    that it issues on the card (``torch.ops._dtensor.shard_dim_alltoall``,
+    which has a fake), where on a ``cpu`` mesh torch falls back to an
+    all-gather of the whole dim and a chunk: the dry run's mesh is ``cpu``,
+    and ``CollectiveCounter`` must count what the card would move.  Every
+    module that bound torch's function by name gets the replacement, and
+    torch's function is back when the window closes."""
+    import sys
+    from torch.distributed.tensor import _collective_utils
+
+    real = _collective_utils.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    owners = [m for name, m in list(sys.modules.items())
+              if name.startswith("torch.distributed.tensor")
+              and getattr(m, "shard_dim_alltoall", None) is real]
+    for m in owners:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m in owners:
+            m.shard_dim_alltoall = real
+
+
 def _place(abstract, spec_tree, mesh):
     """DTensors of the abstract (meta) tree's shapes and dtypes, placed by
     the specs; under ``FakeTensorMode`` nothing is allocated."""
@@ -95,8 +128,9 @@ def _largest(d: dict[str, int]) -> dict[str, int]:
     return dict(sorted(d.items(), key=lambda kv: -kv[1])[:BY_OP])
 
 
-def _batch_specs(cfg, shape, mesh, rules) -> dict:
-    """Specs for the input batch dict (divisibility-sanitized)."""
+def _batch_specs(cfg, shape, mesh, rules, microbatches: int = 1) -> dict:
+    """Specs for the input batch dict, sanitized against one microbatch's
+    shape (as ``train.step.microbatch_placements`` lays a batch out)."""
     specs = {}
     for key, (shp, _) in input_specs(cfg, shape).items():
         if key in ("tokens", "labels"):
@@ -105,8 +139,9 @@ def _batch_specs(cfg, shape, mesh, rules) -> dict:
             lg = ("batch", "seq", "embed_act")
         else:  # audio_frames
             lg = ("batch", "frames", "embed_act")
-        specs[key] = sanitize_spec(logical_spec(lg[:len(shp)], rules, mesh),
-                                   shp, mesh)
+        specs[key] = sanitize_spec(
+            logical_spec(lg[:len(shp)], rules, mesh),
+            (shp[0] // microbatches,) + tuple(shp[1:]), mesh)
     return specs
 
 
@@ -134,7 +169,7 @@ def lower_cell(arch: str, shape_name: str, mesh, rules=None,
     abstract_params = model.abstract_params()
     pspecs = sanitize_tree(model.param_specs(rules, mesh), abstract_params,
                            mesh)
-    bspecs = _batch_specs(cfg, shape, mesh, rules)
+    bspecs = _batch_specs(cfg, shape, mesh, rules, mb)
     counter = CollectiveCounter()
     mem = {"opt_bytes": 0, "grad_bytes": 0, "cache_bytes": 0}
     t0 = time.time()
@@ -176,7 +211,7 @@ def lower_cell(arch: str, shape_name: str, mesh, rules=None,
                         patch_embeds=batch.get("patch_embeds"),
                         audio_frames=batch.get("audio_frames"))
 
-        with counter:
+        with counter, card_alltoall():
             out = run()
         if shape.kind == "prefill":
             mem["cache_bytes"] = _local_bytes(out[1]["blocks"])

@@ -34,8 +34,10 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 # op name fragment -> kind.  Point to point: a hand-off is counted once, at
 # the receiving end (recv), and a broadcast from one stage is the
-# reference's collective-permute; sends are not counted.
-_KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
+# reference's collective-permute; sends are not counted.  DTensor's
+# Shard(i) -> Shard(j) step is its own op, ``_dtensor.shard_dim_alltoall``.
+_KINDS = (("shard_dim_alltoall", "all-to-all"),
+          ("all_gather", "all-gather"), ("allgather", "all-gather"),
           ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
           ("reduce_scatter", "reduce-scatter"),
           ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
@@ -53,7 +55,7 @@ def _tensors(x) -> list[torch.Tensor]:
 
 def _kind(func) -> str | None:
     ns = func.namespace
-    if ns not in ("c10d", "_c10d_functional"):
+    if ns not in ("c10d", "_c10d_functional", "_dtensor"):
         return None
     name = func._overloadpacket.__name__
     for frag, kind in _KINDS:
@@ -111,10 +113,11 @@ class CollectiveCounter(TorchDispatchMode):
 
     DTensor ops are let through (``NotImplemented``), so DTensor splits
     them into local ops and collectives, which come back through this
-    mode.  Functional collectives are counted at their result, c10d ones
-    at their first argument (the tensors they write).  Ops that DTensor
-    runs on global shapes to propagate shardings (under a fake mode other
-    than the one active at entry) are not counted.
+    mode.  Functional collectives (and DTensor's all-to-all) are counted
+    at their result, c10d ones at their first argument (the tensors they
+    write).  Ops that DTensor runs on global shapes to propagate shardings
+    (under a fake mode other than the one active at entry) are not
+    counted.
 
     ``flops_by_op`` and ``bytes_by_op`` split ``flops`` and the collective
     bytes by op and argument shapes (``"mm(8192x1024, 1024x3072)"``,
@@ -151,7 +154,7 @@ class CollectiveCounter(TorchDispatchMode):
         self._track(args, out)
         kind = _kind(func)
         if kind is not None:
-            written = out if func.namespace == "_c10d_functional" else args[0]
+            written = out if func.namespace != "c10d" else args[0]
             n = sum(t.numel() * t.element_size() for t in _tensors(written))
             self.bytes[kind] += n
             self.counts[kind] += 1

@@ -12,7 +12,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, apply_rope
-from repro_torch.sharding.specs import (AxisRules, per_shard, splittable,
+from repro_torch.sharding.specs import (AxisRules, logical_placements,
+                                        per_shard, splittable,
                                         with_logical_constraint)
 
 NEG_INF = -1e30
@@ -138,9 +139,31 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor | None) -> torch.Tensor:
+          mask: torch.Tensor | None,
+          rules: AxisRules | None = None) -> torch.Tensor:
     """Grouped GQA attention (decode path: Lq=1, scores stay small).
-    q: (B,H,Lq,hd); k,v: (B,KV,Lk,hd); mask broadcastable to (B,KV,G,Lq,Lk)."""
+    q: (B,H,Lq,hd); k,v: (B,KV,Lk,hd); mask broadcastable to (B,KV,G,Lq,Lk).
+
+    On a mesh the core runs per (batch, KV head) shard, as the prefill
+    cores run per (batch, head) shard: q's heads split with the KV heads
+    they attend to, or stay whole with them.  A cache split along its
+    length (``kv_seq``, where the KV heads do not tile the model axis) is
+    left to DTensor, which reduces the scores over the split."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(k, DTensor):
+        if any(pl.is_shard(2) for pl in k.placements):
+            return _grouped(q, k, v, mask)
+        lg = ("batch", "kv_heads", None, None)
+        if not any(pl.is_shard(1) for pl in logical_placements(
+                lg, k.shape, k.device_mesh, rules)):
+            lg = ("batch", None, None, None)
+        return per_shard(_grouped, (q, k, v, mask), (lg, lg, lg, None),
+                         (lg, q.shape), rules)
+    return _grouped(q, k, v, mask)
+
+
+def _grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor | None) -> torch.Tensor:
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     G = H // KV
@@ -218,12 +241,39 @@ def cross_decode(p: dict, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
     q = _proj(x, p["wq"], rules)
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
-    out = _sdpa(q, xk, xv, None)
+    out = _sdpa(q, xk, xv, None, rules)
     return with_logical_constraint(_out_proj(out, p["wo"], rules),
                                    ("batch", "seq", "embed_act"), rules)
 
 
 # ------------------------------------------------------------ decode (cached) ---
+
+
+def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, :, slot] = new`` in place (``index_copy_``).  On a mesh
+    each rank writes into its own shard, where the slot lies in it:
+    DTensor's ``index_copy_`` along a split dim writes into a
+    redistributed copy and relabels the cache's placements."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(2, torch.tensor([slot], device=cache.device),
+                          new.to(cache.dtype))
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    new = new.to(cache.dtype).redistribute(
+        mesh, [Replicate() if p.is_shard(2) else p for p in pl]).to_local()
+    # this rank's first slot: the length split as torch.chunk splits it,
+    # over the mesh dims in order (as DTensor's Shard does)
+    first, size = 0, cache.shape[2]
+    for i, p in enumerate(pl):
+        if p.is_shard(2):
+            step = -(-size // mesh.size(i))
+            first += min(mesh.get_local_rank(i) * step, size)
+            size = min(step, size - min(mesh.get_local_rank(i) * step, size))
+    at = slot - first
+    if 0 <= at < local.shape[2]:
+        local.index_copy_(2, torch.tensor([at], device=local.device), new)
 
 
 def decode_attention(
@@ -242,7 +292,7 @@ def decode_attention(
 
     Unlike the reference, which returns new cache arrays, the new token's
     key and value are written into ``cache_k``/``cache_v`` in place
-    (``index_copy_``), and the same tensors are returned."""
+    (``_write_slot``), and the same tensors are returned."""
     S = cache_k.shape[2]
     q, k, v = _project_qkv(p, x, x, rules)
     if use_rope:
@@ -251,15 +301,15 @@ def decode_attention(
         k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_pct)
     # ring-buffer write for SWA, append otherwise
     slot = cache_len % S if window > 0 else min(cache_len, S - 1)
-    at = torch.tensor([slot], device=x.device)
-    cache_k.index_copy_(2, at, k.to(cache_k.dtype))
-    cache_v.index_copy_(2, at, v.to(cache_v.dtype))
+    _write_slot(cache_k, slot, k)
+    _write_slot(cache_v, slot, v)
     kpos = torch.arange(S, device=x.device)
     if window > 0:
         valid = kpos < min(cache_len + 1, S)
     else:
         valid = kpos <= min(cache_len, S - 1)
-    out = _sdpa(q, cache_k, cache_v, valid[None, None, None, None, :])
+    out = _sdpa(q, cache_k, cache_v, valid[None, None, None, None, :],
+                rules)
     return (with_logical_constraint(_out_proj(out, p["wo"], rules),
                                     ("batch", "seq", "embed_act"), rules),
             cache_k, cache_v)

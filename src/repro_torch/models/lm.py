@@ -246,17 +246,27 @@ class Block:
             S_tot = max(pad_to, L)
             S = min(S_tot, cfg.window) if cfg.window > 0 else S_tot
             if cfg.window > 0:
-                # ring buffer: position t lives at slot t % S; keep the last S
+                # ring buffer: position t lives at slot t % S; keep the last
+                # S, a rotation of them by first % S (slices and a cat:
+                # torch 2.11's DTensor has no strategy for index_put_)
                 first = max(L - S, 0)
-                idx = torch.arange(first, L, device=h.device) % S
+                shift = first % S
                 for name, src in (("k", ks), ("v", vs)):
-                    ring = src.new_zeros(src.shape[:2] + (S,) + src.shape[3:])
-                    ring[:, :, idx] = src[:, :, first:]
-                    cache[name] = ring
-            else:
+                    tail = src[:, :, first:]
+                    if L < S:
+                        tail = torch.nn.functional.pad(tail, (0, 0, 0, S - L))
+                    elif shift:
+                        tail = torch.cat([tail[:, :, S - shift:],
+                                          tail[:, :, :S - shift]], dim=2)
+                    cache[name] = tail
+            elif S_tot > L:
                 pad = S_tot - L
                 cache["k"] = torch.nn.functional.pad(ks, (0, 0, 0, pad))
                 cache["v"] = torch.nn.functional.pad(vs, (0, 0, 0, pad))
+            else:
+                # no decode room asked for: the keys and values as they are
+                # (torch 2.11's DTensor cannot propagate a pad of 0)
+                cache["k"], cache["v"] = ks, vs
             h = h + mix
         else:
             mix, (conv_tail, S_state) = mamba_mod.mamba_forward(

@@ -17,7 +17,16 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, rmsnorm
-from repro_torch.sharding.specs import AxisRules, with_logical_constraint
+from repro_torch.sharding.specs import (AxisRules, per_shard,
+                                        with_logical_constraint)
+
+# on a mesh the SSD core runs per (batch, head) shard: the scan runs along
+# seq, so seq reaches it whole whatever the rules say
+_SSD_X = ("batch", None, "ssm_inner", None)        # xh, y: (B, L, H, P)
+_SSD_DT = ("batch", None, "ssm_inner")             # dt: (B, L, H)
+_SSD_A = ("ssm_inner",)                            # A: (H,)
+_SSD_BC = ("batch", None, None)                    # B, C: (B, L, N)
+_SSD_STATE = ("batch", "ssm_inner", None, None)    # states: (B, H, P, N)
 
 
 def mamba_dims(cfg: ModelConfig) -> dict[str, int]:
@@ -152,7 +161,11 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     xh = xs.reshape(B, L, H, P)
     xh = with_logical_constraint(xh, ("batch", "seq", "ssm_inner", None), rules)
     A = -torch.exp(p["A_log"].float())
-    y, S = ssd_chunked(xh, dt, A, Bs, Cs, cfg.ssm_chunk, ssm_state, impl)
+    y, S = per_shard(
+        lambda *a: ssd_chunked(*a[:5], cfg.ssm_chunk, a[5], impl),
+        (xh, dt, A, Bs, Cs, ssm_state),
+        (_SSD_X, _SSD_DT, _SSD_A, _SSD_BC, _SSD_BC, _SSD_STATE),
+        [(_SSD_X, xh.shape), (_SSD_STATE, (B, H, P, N))], rules)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, L, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])

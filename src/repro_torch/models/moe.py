@@ -120,6 +120,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     e0 = None if ax is None else mesh.get_local_rank(ax) * (E // mesh.size(ax))
     act_pl = [Replicate() if i == ax else pl for i, pl in enumerate(x.placements)]
     out_pl = [Partial() if i == ax else pl for i, pl in enumerate(act_pl)]
+    # a rank's tokens meet its experts whole: weights split over an axis
+    # that splits the tokens (the ffn dim over data, say) are gathered there
+    w_pl = [Replicate() if act_pl[i].is_shard() else pl
+            for i, pl in enumerate(w_pl)]
     # x and the routing weights reach only this rank's experts, and the
     # expert weights see only this rank's tokens: their gradients are
     # partial sums, over the experts' axis and the token-split axes

@@ -240,16 +240,19 @@ def logical_placements(logical: tuple[str | None, ...], shape, mesh,
                                     tuple(shape), mesh), mesh)
 
 
-def per_shard(fn, args: tuple, in_logical: tuple, out: tuple, rules=None):
+def per_shard(fn, args: tuple, in_logical: tuple, out, rules=None):
     """``fn(*args)`` on each rank's local shards, where that computes the
     same as on whole tensors (no reduction over a sharded dim): DTensor
     args are placed by their logical names (``None`` entries pass as they
     are), ``fn`` runs on the local tensors, and its result is a DTensor
-    placed by ``out``, a ``(logical, global shape)`` pair.  Without a
-    DTensor among ``args``, ``fn(*args)``.  The reference leaves this to
-    its compiler's sharding propagation; DTensor cannot shard a batched
+    placed by ``out``, a ``(logical, global shape)`` pair, or a list of
+    them for a tuple of results.  Without a DTensor among ``args``,
+    ``fn(*args)``.  An arg whole on a mesh axis that splits a result
+    feeds only that rank's part of the result, so its gradient is a
+    partial sum over that axis.  The reference leaves this to its
+    compiler's sharding propagation; DTensor cannot shard a batched
     matmul over two sharded batch dims."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial
     from torch.distributed.tensor.experimental import local_map
     mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
     if mesh is None:
@@ -257,9 +260,17 @@ def per_shard(fn, args: tuple, in_logical: tuple, out: tuple, rules=None):
     in_pl = tuple(None if lg is None or not isinstance(a, DTensor)
                   else logical_placements(lg, a.shape, mesh, rules)
                   for a, lg in zip(args, in_logical))
-    return local_map(fn, out_placements=logical_placements(*out, mesh, rules),
-                     in_placements=in_pl, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    outs = out if isinstance(out, list) else [out]
+    out_pl = [logical_placements(*o, mesh, rules) for o in outs]
+    split = [any(pl[i].is_shard() for pl in out_pl)
+             for i in range(mesh.ndim)]
+    grad_pl = tuple(None if pl is None else
+                    [Partial() if split[i] and not p.is_shard() else p
+                     for i, p in enumerate(pl)] for pl in in_pl)
+    return local_map(fn, out_placements=tuple(out_pl) if isinstance(
+        out, list) else out_pl[0], in_placements=in_pl,
+        in_grad_placements=grad_pl, device_mesh=mesh,
+        redistribute_inputs=True)(*args)
 
 
 def with_logical_constraint(x: torch.Tensor, logical: tuple[str | None, ...],

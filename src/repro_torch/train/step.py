@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.models.lm import LM
 from repro_torch.sharding.specs import (AxisRules, logical_spec, placements,
-                                        sanitize_tree)
+                                        sanitize_spec, sanitize_tree)
 from repro_torch.train.optimizer import (OptConfig, map_tree, opt_specs,
                                          opt_update, tree_leaves)
 
@@ -43,6 +43,16 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
         return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
 
     return [{key: split(x, i) for key, x in batch.items()} for i in range(k)]
+
+
+def microbatch_placements(spec, shape, k: int, mesh) -> list:
+    """Placements of a batch tensor of ``shape`` that splits into ``k``
+    microbatches: ``spec`` sanitized against one microbatch's shape (B / k
+    rows), as the model's activations are, so that every rank's rows split
+    into k whole microbatches (16-row microbatches over 32 batch ways keep
+    only the axes that divide 16)."""
+    return placements(sanitize_spec(
+        spec, (shape[0] // k,) + tuple(shape[1:]), mesh), mesh)
 
 
 def make_train_step(model: LM, opt_cfg: OptConfig, *, microbatches: int = 1
@@ -148,18 +158,20 @@ def shard_train_step(model: LM, train_step: Callable, mesh,
     from torch.distributed.tensor.experimental import implicit_replication
 
     pspecs, ospecs = sharded_specs(model, mesh, rules)
-    data_pl = placements(logical_spec(("batch", "seq"), rules, mesh), mesh)
+    data_spec = logical_spec(("batch", "seq"), rules, mesh)
+    data_pl = placements(data_spec, mesh)
     k = getattr(train_step, "microbatches", 1)
-    stacked_pl = [Shard(p.dim + 1) if p.is_shard() else p for p in data_pl]
 
     def place(v: torch.Tensor):
         if isinstance(v, DTensor):
             return v
         if k == 1:
             return distribute_tensor(v, mesh, data_pl)
+        pl = microbatch_placements(data_spec, v.shape, k, mesh)
+        stacked_pl = [Shard(p.dim + 1) if p.is_shard() else p for p in pl]
         mbs = v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
         local = distribute_tensor(mbs, mesh, stacked_pl).to_local()
-        return DTensor.from_local(local.flatten(0, 1), mesh, data_pl,
+        return DTensor.from_local(local.flatten(0, 1), mesh, pl,
                                   run_check=False)
 
     def step(params, opt_state, batch):

@@ -5,9 +5,9 @@ JAX package.
 One 4-rank session (``_SESSION``, launched as 4 processes with a time
 limit) computes everything; the tests read its results:
 
-- The sharded train step (``shard_train_step``) of the granite and yi
-  smoke configs in f32 on a 2x2 ("data", "model") mesh against the port's
-  single-device ``make_train_step``.  The loss within 1e-5 relative and
+- The sharded train step (``shard_train_step``) of the granite, yi and
+  mamba2 smoke configs in f32 on a 2x2 ("data", "model") mesh against the
+  port's single-device ``make_train_step``.  The loss within 1e-5 relative and
   each gradient leaf within 1e-4 of its largest entry: the sharded forward
   sums GEMMs and reductions over shards in another order (the losses
   differ by an ulp or so, 4.8e-7 of 6.3), and the smoke models amplify
@@ -18,6 +18,8 @@ limit) computes everything; the tests read its results:
   2 x lr (Adam moves an entry by up to lr where its gradient is within eps
   of zero, whatever its last bits).  The same with two microbatches
   (granite), each the unsharded step's rows.
+- Two decode steps of the granite smoke config on the 2x2 mesh, its KV
+  caches split along their length, against the unsharded steps.
 - ``train_loop`` on the 2x2 mesh shards each parameter as it is drawn: the
   most bytes its init holds at once on a rank stay near its local shards.
 - Elastic restore: a checkpoint written from DTensors is byte for byte the
@@ -98,7 +100,7 @@ def moment_err(o1, o2):
     return max(float((a - full(b)).abs().max() / max(float(a.abs().max()), 1e-30))
                for (_, a), (_, b) in zip(tree_leaves(o1["m"]), tree_leaves(o2["m"])))
 
-for arch in ("granite-moe-1b-a400m", "yi-6b"):
+for arch in ("granite-moe-1b-a400m", "yi-6b", "mamba2-780m"):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
     single = LM(cfg, impl, device="cpu")
     sharded = LM(cfg, impl, device="cpu", rules=DEFAULT_RULES)
@@ -145,6 +147,38 @@ for arch in ("granite-moe-1b-a400m", "yi-6b"):
         res["mb2"] = {"loss1": float(m1["loss"]), "loss2": float(m2["loss"]),
                       "gnorm1": float(m1["gnorm"]), "gnorm2": float(m2["gnorm"]),
                       "moment_err": moment_err(o1, o2)}
+
+# decode on the mesh: the granite smoke config's KV caches are split along
+# their length over "model" (2 KV heads do not tile the production model
+# axis), so each step writes its key and value into the shard that holds
+# the slot (prompt 6, 8 slots: the new tokens land in the second half)
+from repro_torch.sharding.specs import sanitize_tree
+cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                          dtype=torch.float32)
+single = LM(cfg, impl, device="cpu")
+sharded = LM(cfg, impl, device="cpu", rules=DEFAULT_RULES)
+p1 = single.init(0)
+dp = distribute_tree(sharded.init(0), sharded_specs(sharded, mesh)[0], mesh)
+toks = torch.from_numpy(np.random.default_rng(5).integers(1, cfg.vocab_size, (4, 6)))
+logits, cache = single.prefill(p1, toks, pad_to=8)
+cspecs = sanitize_tree(sharded.cache_specs(4, 8, mesh=mesh),
+                       sharded.abstract_cache(4, 8), mesh)
+dcache = {"blocks": distribute_tree({"blocks": map_tree(torch.clone, cache["blocks"])},
+                                    cspecs, mesh)["blocks"], "len": cache["len"]}
+tok_pl = placements(logical_spec(("batch", "seq"), None, mesh), mesh)
+errs = []
+for _ in range(2):
+    tok = logits.argmax(-1, keepdim=True)
+    logits, cache = single.decode_step(p1, tok, cache)
+    with implicit_replication():
+        dl, dcache = sharded.decode_step(dp, distribute_tensor(tok, mesh, tok_pl),
+                                         dcache)
+    errs.append(float((logits - full(dl)).abs().max() / logits.abs().max()))
+k0 = dcache["blocks"][0]["k"]
+res["decode"] = {"errs": errs, "placements": [repr(p) for p in k0.placements],
+                 "cache_err": max(float((a - full(b)).abs().max()) for (_, a), (_, b)
+                                  in zip(tree_leaves(cache["blocks"]),
+                                         tree_leaves(dcache["blocks"])))}
 
 # train_loop on the mesh: its state is sharded as it is drawn, so no rank
 # ever holds the full params or moments
@@ -324,7 +358,8 @@ def session(tmp_path_factory):
     return out, res
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "yi-6b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "yi-6b",
+                                  "mamba2-780m"])
 def test_sharded_step_matches_single_device(session, arch):
     _, res = session
     for r in res:
@@ -338,6 +373,21 @@ def test_sharded_step_matches_single_device(session, arch):
         assert got["param_err"] <= 2 * 1e-3, got["param_err"]
     # every rank reports the same loss
     assert len({r[arch]["loss2"] for r in res}) == 1
+
+
+def test_sharded_decode_writes_each_slot_into_its_shard(session):
+    """Two greedy decode steps of the granite smoke config (f32) on the 2x2
+    mesh after an unsharded prefill, its caches split along their length
+    over "model": every step's logits within 1e-5 of the largest of the
+    unsharded step's, and the caches after them equal to the unsharded
+    caches within 1e-5 (a step whose key and value were written into a
+    redistributed copy would attend without them)."""
+    _, res = session
+    for r in res:
+        got = r["decode"]
+        assert got["placements"] == ["Shard(dim=0)", "Shard(dim=2)"], got
+        assert max(got["errs"]) <= 1e-5, got
+        assert got["cache_err"] <= 1e-5, got
 
 
 def test_sharded_microbatches_are_the_reference_rows(session):

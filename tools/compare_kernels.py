@@ -14,9 +14,9 @@ path, ``ssd_scan`` at every SSD case of ``chip_smoke.py`` phase 13, and
 ``moe_router`` at every router case of phase 13 (each registered (d, E, k)
 at decode T 4 and prefill T 8,192, f32 and bf16).
 Times are device µs per call from CUDA-graph replay
-(``chip_smoke.graph_ms``); every result is also held against the plain
-version at ``chip_smoke.py``'s tolerances.  Give the roots in turns (A B B
-A) to see how far the card drifts between runs.  Needs one CUDA card and
+(``benchmarks_torch.kernel_timing.graph_ms``); every result is also held
+against the plain version at ``kernel_timing``'s tolerances.  Give the
+roots in turns (A B B A) to see how far the card drifts between runs.  Needs one CUDA card and
 ``nvcc``; prints the card's name and power limit, one JSON line per root
 and case, and a table.
 """
@@ -56,7 +56,8 @@ def one(root: Path) -> None:
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
-    from chip_smoke import ATOL, LM_TOL, graph_ms, router_check
+    from benchmarks_torch.kernel_timing import (ATOL, LM_TOL, graph_ms,
+                                                router_check)
     from repro_torch.kernels import moe_router as mr, policy_mlp as pm
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import policy_mlp_ref, ssd_scan_ref

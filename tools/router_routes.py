@@ -7,8 +7,8 @@ crossovers.
 For every registered router shape (d, E, k), f32 and bf16 x, and T from 1
 to 8,192, it forces each route that takes the call (``split``, ``tiled``,
 and ``mma`` for bf16 x) through ``moe_router.run``, holds the result
-against the plain version (``chip_smoke.router_check``) and times it
-(device µs per call from CUDA-graph replay, ``chip_smoke.graph_ms``).  It
+against the plain version (``kernel_timing.router_check``) and times it
+(device µs per call from CUDA-graph replay, ``kernel_timing.graph_ms``).  It
 prints one line per case with every route's time and the route the library
 picks, then, per shape and dtype, the largest T at which ``split`` is the
 fastest route.  Needs one CUDA card and ``nvcc``.
@@ -30,7 +30,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
-    from chip_smoke import graph_ms, nvidia_smi_line, router_check
+    from benchmarks_torch.kernel_timing import graph_ms, router_check
+    from chip_smoke import nvidia_smi_line
     from repro_torch.kernels import moe_router as mr
 
     torch.backends.cuda.matmul.allow_tf32 = False
