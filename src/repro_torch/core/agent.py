@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch.convert import load_numpy_params, params_to_numpy
+from repro_torch.core import spans
 from repro_torch.core.features import CV_SIZE, MAX_QUEUE_SIZE, OV_SIZE
 from repro_torch.kernels import ops
 
@@ -182,8 +183,11 @@ def greedy_step(net: ActorCritic, ov: torch.Tensor,
 
     Sorted on the host with a stable sort, as ``jnp.argsort``: exact ties
     (masked rows at -1e9) keep their index order."""
-    logits = actor_logits(net, ov, mask).detach().cpu().numpy()
-    return np.argsort(-logits, kind="stable")
+    logits = actor_logits(net, ov, mask).detach()
+    sp = spans.ACTIVE
+    if sp is not None and logits.device.type != "cpu":
+        spans.count_copy(sp, "d2h", logits.numel() * 4)
+    return np.argsort(-logits.cpu().numpy(), kind="stable")
 
 
 # ---------------------------------------------------------------------- Adam -----
@@ -384,8 +388,11 @@ class PPOAgent:
         return list(self._traj["value"])
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) \
-            .to(self.device)
+        a = np.ascontiguousarray(a, dtype=np.float32)
+        sp = spans.ACTIVE
+        if sp is not None and self.device.type != "cpu":
+            spans.count_copy(sp, "h2d", a.nbytes)
+        return torch.from_numpy(a).to(self.device)
 
     def act(self, ov: np.ndarray, cv: np.ndarray, mask: np.ndarray,
             explore: bool = True, record: bool = True) -> tuple[int, np.ndarray]:
@@ -402,7 +409,14 @@ class PPOAgent:
                 self._traj["action"].append(action)
                 self._traj["logp"].append(float(out["logp"]))
                 self._traj["value"].append(float(out["value"]))
-            return action, out["logits"].cpu().numpy()
+            logits = out["logits"]
+            sp = spans.ACTIVE
+            if sp is not None and logits.device.type != "cpu":
+                # the action, logp and value scalars, then the logits
+                n = 3 if record else 1
+                spans.count_copy(sp, "d2h", 8 + 4 * (n - 1), n)
+                spans.count_copy(sp, "d2h", logits.numel() * 4)
+            return action, logits.cpu().numpy()
         with torch.no_grad():
             order = greedy_step(self.net, self._tensor(ov), self._tensor(mask))
         logits = np.zeros(mask.shape, dtype=np.float32)

@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.agent import PPOAgent
 from repro_torch.core.cluster import ClusterState
 from repro_torch.core.features import (CV_SIZE, MAX_QUEUE_SIZE, OV_SIZE,
@@ -95,6 +96,9 @@ class RLPrioritizer:
     def _rank(self, jobs, cluster, now, fields) -> list[int]:
         n = min(len(jobs), MAX_QUEUE_SIZE)
         tail_logits = None
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.rank.features")
         if self.deep_scorer is not None and len(jobs) > MAX_QUEUE_SIZE:
             # one FBM pass over the whole window: the head state is built
             # from the exact rows build_state would produce (same feats ->
@@ -111,13 +115,21 @@ class RLPrioritizer:
             mask[:n] = 1.0
             ov = pad_to_queue(ov_full, OV_SIZE)
             cv = pad_to_queue(critic_features(feats), CV_SIZE)
+            if sp is not None:
+                sp.close()
+                sp.open("rltune.rank.tail")
             tail_logits = self.deep_scorer.score(ov_full[n:])
         else:
             ov, cv, mask = build_state(jobs, cluster, now,
                                        use_estimates=self.use_estimates,
                                        raw=self.raw_features, fields=fields)
+        if sp is not None:
+            sp.close()
+            sp.open("rltune.rank.actor")
         action, logits = self.agent.act(ov, cv, mask, explore=self.explore,
                                         record=self.explore and self.record)
+        if sp is not None:
+            sp.close()
         order = list(np.argsort(-logits[:n], kind="stable"))
         if action < n:
             order.remove(action)

@@ -57,6 +57,7 @@ try:  # pragma: no cover - import guard
 except Exception:  # pragma: no cover
     _HAVE_SCIPY = False
 
+from repro_torch.core import spans
 from repro_torch.core.cluster import ClusterState, Placement, _job_shape
 from repro_torch.core.types import Job
 
@@ -128,10 +129,16 @@ def choose_allocation(
     weights) at the current cluster version — exact, since every input the
     solve reads is a pure function of those; any mutation bumps the
     version and invalidates.
+
+    With the span recorder on (``repro_torch.core.spans``) each request
+    with more than one way counts as ``milp.hits`` (the solution cache),
+    ``milp.solves`` (reached HiGHS, inside a ``rltune.milp.solve`` span)
+    or ``milp.greedy`` (the greedy choice without a solve).
     """
     assert ways, "choose_allocation requires at least one candidate way"
     if len(ways) == 1:
         return MILPResult(ways[0], 0, float(job.num_gpus), False, 0)
+    sp = spans.ACTIVE
     ways = ways[:2]  # Algorithm 1 is binary: way1 vs way2
     lookahead = (lookahead or [])[:lookahead_k]
     weights = _lookahead_weights(lookahead, durations)
@@ -151,12 +158,21 @@ def choose_allocation(
                None if weights is None else tuple(weights))
         hit = cache.get(key)
         if hit is not None:
+            if sp is not None:
+                sp.count("milp.hits")
             return hit
 
     if use_solver and _HAVE_SCIPY:
+        if sp is not None:
+            sp.count("milp.solves")
+            sp.open("rltune.milp.solve")
         res = _solve_milp(cluster, job, ways, lookahead, weights)
+        if sp is not None:
+            sp.close()
     else:
         res = None
+        if sp is not None:
+            sp.count("milp.greedy")
     if res is None:
         res = _greedy_choice(cluster, job, ways, lookahead, weights)
     if cache is not None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import ops
 
 #: bucket ladder bounds: the smallest bucket matches the actor window, the
@@ -61,6 +62,10 @@ class BucketedScorer:
             out = ops.policy_mlp(torch.from_numpy(x_pad).to(self.device),
                                  self.params,
                                  torch.from_numpy(mask).to(self.device))
+        sp = spans.ACTIVE
+        if sp is not None and self.device.type != "cpu":
+            spans.count_copy(sp, "h2d", x_pad.nbytes + mask.nbytes, 2)
+            spans.count_copy(sp, "d2h", out.numel() * out.element_size())
         return out.cpu().numpy()
 
     def score(self, feats: np.ndarray) -> np.ndarray:

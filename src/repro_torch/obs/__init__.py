@@ -10,6 +10,29 @@ pass around (``run_stream(..., obs=obs)`` / ``run_fleet(..., obs=obs)``):
   histograms with a Prometheus text exporter and fleet-level merge.
 - :class:`~repro_torch.obs.audit.DecisionAuditLog` — per-decision rank-path /
   allocator / skip-reason accounting.
+- the span recorder :mod:`repro_torch.core.spans` (also
+  ``from repro_torch.obs import spans``), off by default and switched on
+  with ``spans.enable()``: nested spans and counters inside the
+  scheduling pass — ``rltune.step`` and its ``rltune.events`` /
+  ``rltune.schedule`` / ``rltune.hooks`` parts, the ranking
+  (``rltune.rank`` with ``.features`` / ``.actor`` / ``.tail``), head
+  placements (``rltune.place.head`` / ``.head_failed``), HiGHS solves
+  (``rltune.milp.solve``), the EASY scan (``rltune.backfill`` /
+  ``.reserve``) and the predictor (``rltune.predict.rows`` / ``.forward``
+  / ``.sgd`` / ``.submit``); counters for decisions and futile decisions
+  (``rank.*``), the MILP solution cache (``milp.hits`` / ``.solves`` /
+  ``.greedy``), the backfill scan's placement attempts
+  (``backfill.tried`` / ``.failed``), the predictor's weight uploads
+  (``predict.param_uploads``) and copies to and from the card
+  (``device.*``).  While the recorder is on, the bundle's views carry
+  it: its spans join the trace document as complete events on the
+  control-plane track (``tid`` ``"spans"``, the tracer's wall origin),
+  its totals and counters the Prometheus text as
+  ``repro_span_seconds_total{span=...}`` (wall),
+  ``repro_span_calls_total{span=...}`` and ``repro_<counter>_total``
+  (dots as underscores).  An engine built or restored under
+  ``torch.profiler`` also switches it on, until its first step after the
+  profiler stopped; its clock maps onto the profiler's trace.
 
 ``obs.hooks()`` yields the hook objects to attach to an engine (the
 service loop composes them with telemetry and RL recorders through
@@ -24,6 +47,7 @@ from __future__ import annotations
 
 import time
 
+from repro_torch.core import spans
 from repro_torch.obs.audit import DecisionAuditLog
 from repro_torch.obs.metrics import (Counter, EngineMetricsHook, Gauge,
                                      Histogram, MetricsRegistry)
@@ -39,7 +63,9 @@ __all__ = [
 class Observability:
     """Bundle of tracer + metrics + audit log for one engine (or, via
     :meth:`member`, one federation).  Any sink can be switched off at
-    construction; ``hooks()`` only returns the live ones."""
+    construction; ``hooks()`` only returns the live ones.  The views
+    carry the process-wide span recorder while it is on (see the module
+    docstring); the fleet-merged views carry it once, with the root."""
 
     def __init__(self, *, name: str = "cluster", member: int = 0,
                  trace: bool = True, metrics: bool = True,
@@ -142,6 +168,8 @@ class Observability:
         docs = []
         if self.tracer is not None:
             docs.append(self.tracer.to_document())
+            if spans.ACTIVE is not None:
+                docs[0]["traceEvents"].extend(self._span_events(spans.ACTIVE))
         docs.extend(m.tracer.to_document() for m in self.members()
                     if m.tracer is not None)
         if len(docs) == 1:
@@ -154,9 +182,37 @@ class Observability:
             json.dump(self.trace_document(), fh)
         return path
 
+    def _span_events(self, rec) -> list[dict]:
+        """The recorder's timeline as complete events on the control-plane
+        track, in µs from the tracer's wall origin."""
+        tr = self.tracer
+        origin = tr._wall0 * 1e6
+        return [{"name": rec.names[nid], "ph": "X", "cat": "span",
+                 "ts": max(int(round(s / 1e3 - origin)), 0),
+                 "dur": max(int(round((e - s) / 1e3)), 0),
+                 "pid": tr.ctrl_pid, "tid": "spans", "args": {"depth": d}}
+                for s, e, nid, d in rec.events]
+
+    @staticmethod
+    def _span_registry(rec) -> MetricsRegistry:
+        reg = MetricsRegistry()
+        for name, (n, wall, _) in sorted(rec.totals.items()):
+            reg.counter("repro_span_seconds_total",
+                        "wall seconds inside each span",
+                        span=name).inc(wall / 1e9)
+            reg.counter("repro_span_calls_total", "spans closed",
+                        span=name).inc(n)
+        for name, n in sorted(rec.counters.items()):
+            reg.counter(f"repro_{name.replace('.', '_')}_total",
+                        f"span recorder counter {name}").inc(n)
+        return reg
+
     def merged_registry(self) -> MetricsRegistry:
-        """Fleet-merged metrics registry (self + members)."""
+        """Fleet-merged metrics registry (self + members), with the span
+        span recorder's totals and counters while it is on."""
         regs = [self.registry] + [m.registry for m in self.members()]
+        if spans.ACTIVE is not None:
+            regs.append(self._span_registry(spans.ACTIVE))
         return MetricsRegistry.merged(r for r in regs if r is not None)
 
     def prometheus(self) -> str:

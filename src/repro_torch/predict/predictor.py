@@ -45,6 +45,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.agent import _resolve_device
 from repro_torch.core.features import NUM_FEATURES, build_features
 from repro_torch.sched.engine import EngineHooks
@@ -341,6 +342,14 @@ class RuntimePredictor(EngineHooks):
                 k: torch.tensor(v, dtype=torch.float32, device=self.device)
                 for k, v in self.mlp.params.items()}
             self._dev_updates = self.mlp.updates
+            sp = spans.ACTIVE
+            if sp is not None:
+                sp.count("predict.param_uploads")
+                if self.device.type != "cpu":
+                    params = self.mlp.params.values()
+                    spans.count_copy(sp, "h2d",
+                                     sum(v.size * 4 for v in params),
+                                     len(self._dev_params))
         return self._dev_params
 
     def _forward(self, X: np.ndarray) -> np.ndarray:
@@ -349,6 +358,10 @@ class RuntimePredictor(EngineHooks):
         params = self._device_params()
         with torch.no_grad():
             out = ops.predict_mlp(torch.from_numpy(X).to(self.device), params)
+        sp = spans.ACTIVE
+        if sp is not None and self.device.type != "cpu":
+            spans.count_copy(sp, "h2d", X.nbytes)
+            spans.count_copy(sp, "d2h", out.numel() * out.element_size())
         return out.cpu().numpy()
 
     # ---------------------------------------------------------- prediction --
@@ -360,11 +373,20 @@ class RuntimePredictor(EngineHooks):
         n = len(jobs)
         if n == 0:
             return np.zeros(0), np.zeros(0)
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.predict.rows")
         anchors = np.array([self._anchor(j) for j in jobs], np.float64)
-        r = self._forward(self._rows(jobs, engine)).astype(np.float64)
+        X = self._rows(jobs, engine)
+        if sp is not None:
+            sp.close()
+            sp.open("rltune.predict.forward")
+        r = self._forward(X).astype(np.float64)
         r = np.clip(r, -RESID_CLAMP, RESID_CLAMP)
         p50 = np.maximum(anchors * np.exp(r[:, 0]), 1.0)
         p90 = np.maximum(anchors * np.exp(r[:, 1]), p50)
+        if sp is not None:
+            sp.close()
         return p50, p90
 
     def reserve_batch(self, jobs: list[Job], engine=None) -> np.ndarray:
@@ -399,11 +421,19 @@ class RuntimePredictor(EngineHooks):
 
     # ------------------------------------------------------------- training --
     def on_submit(self, job: Job, now: float) -> None:
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.predict.submit")
         if len(self._cache) >= self.max_cached:
             self._cache.pop(next(iter(self._cache)))
         self._cache[job.job_id] = self._job_row(job, self.engine, now)
+        if sp is not None:
+            sp.close()
 
     def on_finish(self, job: Job, now: float) -> None:
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.predict.sgd")
         actual = max(float(job.runtime), 1.0)
         anchor = self._anchor(job)
         row = self._cache.pop(job.job_id, None)
@@ -438,6 +468,8 @@ class RuntimePredictor(EngineHooks):
             self._bias_n[key] = self._bias_n.get(key, 0) + 1
         self.baseline.observe(job, actual)
         self.train_steps += 1
+        if sp is not None:
+            sp.close()
 
     # ------------------------------------------------------------ reporting --
     def note_reservation(self, slack_s: float) -> None:

@@ -64,6 +64,7 @@ from typing import Iterable
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.cluster import ClusterState, Placement, _job_shape
 from repro_torch.core.faults import FaultInjector, FaultModel
 from repro_torch.core.metrics import BatchResult
@@ -532,6 +533,7 @@ class SchedulerEngine:
         self._guard = 0
         self._guard_budget = 10_000
         self._rebuild_hook_dispatch()
+        spans.follow_profiler()
 
     def _rebuild_hook_dispatch(self) -> None:
         """Precompute which attached hooks define the gated observability
@@ -662,37 +664,59 @@ class SchedulerEngine:
         were processed.  The clock never advances past the last processed
         event, so interleaving ``step`` calls is equivalent to one ``drain``."""
         processed = 0
-        while self._events and self._events[0][0] <= until:
-            if max_events is not None and processed >= max_events:
-                break
-            self._guard += 1
-            if self._guard >= self._guard_budget:
-                # a real error, not an assert: must survive `python -O`
-                raise RuntimeError(
-                    f"scheduler engine stuck: processed {self._guard} event "
-                    f"batches against a budget of {self._guard_budget} "
-                    f"({self.submitted} submitted, {self.completed_count} "
-                    f"completed)")
-            now, _, kind, payload = heapq.heappop(self._events)
-            self.now = now
-            # fold in all events at the same instant
-            batch_evts = [(kind, payload)]
-            while self._events and self._events[0][0] <= now + 1e-9:
-                _, _, k2, p2 = heapq.heappop(self._events)
-                batch_evts.append((k2, p2))
-            self._handle_faults()
-            for k, p in batch_evts:
-                if k == "arrival":
-                    self._push_pending(p)
-                elif k == "finish":
-                    jid = p
-                    rec = self.running.get(jid)
-                    if rec is not None and abs(rec[3] - now) < 1e-6:
-                        self._finish_job(jid)
-            self._try_schedule()
-            for h in self.hooks:
-                h.on_tick(self.now, self)
-            processed += 1
+        sp = spans.ACTIVE
+        if sp is not None and sp.follows_profiler:
+            # a recorder the profiler switched on goes off with it
+            sp = spans.follow_profiler()
+        depth = sp.depth if sp is not None else 0
+        try:
+            while self._events and self._events[0][0] <= until:
+                if max_events is not None and processed >= max_events:
+                    break
+                self._guard += 1
+                if self._guard >= self._guard_budget:
+                    # a real error, not an assert: must survive `python -O`
+                    raise RuntimeError(
+                        f"scheduler engine stuck: processed {self._guard} "
+                        f"event batches against a budget of "
+                        f"{self._guard_budget} ({self.submitted} submitted, "
+                        f"{self.completed_count} completed)")
+                if sp is not None:
+                    sp.open("rltune.step")
+                    sp.open("rltune.events")
+                now, _, kind, payload = heapq.heappop(self._events)
+                self.now = now
+                # fold in all events at the same instant
+                batch_evts = [(kind, payload)]
+                while self._events and self._events[0][0] <= now + 1e-9:
+                    _, _, k2, p2 = heapq.heappop(self._events)
+                    batch_evts.append((k2, p2))
+                self._handle_faults()
+                for k, p in batch_evts:
+                    if k == "arrival":
+                        self._push_pending(p)
+                    elif k == "finish":
+                        jid = p
+                        rec = self.running.get(jid)
+                        if rec is not None and abs(rec[3] - now) < 1e-6:
+                            self._finish_job(jid)
+                if sp is not None:
+                    sp.close()
+                    sp.open("rltune.schedule")
+                self._try_schedule()
+                if sp is not None:
+                    sp.close()
+                    sp.open("rltune.hooks")
+                for h in self.hooks:
+                    h.on_tick(self.now, self)
+                if sp is not None:
+                    sp.close()
+                    sp.close()
+                processed += 1
+        finally:
+            if sp is not None:
+                # spans a raising pass left open
+                sp.unwind(depth)
         return processed
 
     def drain(self) -> int:
@@ -846,8 +870,13 @@ class SchedulerEngine:
             bisect.insort(self._finish_index, (finish, job.job_id))
         heapq.heappush(self._events,
                        (finish, next(self._seq), "finish", job.job_id))
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.hooks")
         for h in self.hooks:
             h.on_start(job, self.now)
+        if sp is not None:
+            sp.close()
         if job.job_id in self._resume_pending:
             self._resume_pending.discard(job.job_id)
             self._fire_hook("on_resume", job, self.now)
@@ -1286,8 +1315,13 @@ class SchedulerEngine:
         else:
             self.completed.append(job)
         self.prioritizer.observe_finish(job)
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.hooks")
         for h in self.hooks:
             h.on_finish(job, self.now)
+        if sp is not None:
+            sp.close()
 
     def _handle_faults(self) -> None:
         if self._injector is None:
@@ -1388,10 +1422,15 @@ class SchedulerEngine:
     def _fire_decision(self, queue: list[Job], order: list[int]) -> None:
         """Notify decision observers.  ``getattr``-guarded because hooks are
         duck-typed (pre-existing observers may not define ``on_decision``)."""
+        sp = spans.ACTIVE
+        if sp is not None:
+            sp.open("rltune.hooks")
         for h in self.hooks:
             fn = getattr(h, "on_decision", None)
             if fn is not None:
                 fn(queue, order, self.now, self)
+        if sp is not None:
+            sp.close()
 
     def _predict_assist(self):
         """The attached predictor, iff it should steer decisions (assist
@@ -1488,6 +1527,7 @@ class SchedulerEngine:
         #: (`audit` empty, the default) no clock is read and no dict is
         #: built, keeping the pass bit-identical to the pre-obs engine
         audit = self._audit_obs
+        sp = spans.ACTIVE
         while self.pending:
             # schedulability is checked straight off the sorted pending
             # list; the O(window) slice is deferred until something can
@@ -1504,6 +1544,8 @@ class SchedulerEngine:
             # extraction is a slice, no re-sort
             queue = self.pending[: self.queue_window]
             t_rank = time.perf_counter() if audit else 0.0
+            if sp is not None:
+                sp.open("rltune.rank")
             fcfs = self._fcfs_degraded()
             if fcfs:
                 order = list(range(len(queue)))
@@ -1512,6 +1554,9 @@ class SchedulerEngine:
                                     self._pindex.window(self.queue_window))
             else:
                 order = prioritizer.rank(queue, cluster, self.now)
+            if sp is not None:
+                sp.close()
+                sp.count("rank.decisions")
             self.decisions += 1
             if self.hooks:
                 self._fire_decision(queue, order)
@@ -1531,7 +1576,12 @@ class SchedulerEngine:
             rest = [queue[i] for i in order[1:1 + k_look]]
             durations = self._lookahead_durations(rest)
             calls0, fb0 = self.milp_calls, self.milp_fallbacks
+            if sp is not None:
+                sp.open("rltune.place.head")
             placement = self._alloc_for(top, rest, durations)
+            if sp is not None:
+                sp.close(None if placement is not None
+                         else "rltune.place.head_failed")
             if placement is not None:
                 if rec is not None:
                     rec["placed"] = True
@@ -1549,6 +1599,8 @@ class SchedulerEngine:
             if not self.backfill:
                 if rec is not None:
                     self._fire_audit(rec)
+                if sp is not None:
+                    sp.count("rank.futile")
                 return
             # EASY backfill under reservation for `top`.  The audit skip
             # tallies use local ints folded into the record after the loop:
@@ -1559,7 +1611,13 @@ class SchedulerEngine:
             # ``_alloc_for`` when no observers are attached) — alloc spans
             # cover head-of-queue placements; backfill starts are counted
             # in the record's ``backfills`` field.
+            if sp is not None:
+                sp.open("rltune.backfill")
+                sp.open("rltune.backfill.reserve")
+                bf0 = self.backfills
             t_res = self._earliest_start(top)
+            if sp is not None:
+                sp.close()
             progressed = False
             # Vectorized candidate filter over the pending-index columns.
             # The pindex still mirrors `queue` row-for-row (nothing was
@@ -1600,6 +1658,7 @@ class SchedulerEngine:
                 neg.clear()
             free_any, free_by_type = cluster.free_gpu_tallies()
             sk_nopl = 0
+            failed = 0
             for i in order_arr[ok]:
                 cand = queue[i]
                 if cand.state != JobState.PENDING or cand is top:
@@ -1641,12 +1700,18 @@ class SchedulerEngine:
                 else:
                     neg.add(sid)
                     sk_nopl += 1
+                    failed += 1
             if rec is not None:
                 if sk_over:
                     rec["skips"]["backfill-overrun"] = sk_over
                 if sk_nopl:
                     rec["skips"]["backfill-no-placement"] = sk_nopl
                 self._fire_audit(rec)
+            if sp is not None:
+                sp.add(("backfill.tried", self.backfills - bf0 + failed),
+                       ("backfill.failed", failed),
+                       ("rank.futile", not progressed))
+                sp.close()
             if not progressed:
                 return
             # after backfills the reserved job may now fit; loop again
@@ -1739,6 +1804,7 @@ class SchedulerEngine:
             if pred not in eng.hooks:
                 eng.hooks.append(pred)
         eng._rebuild_hook_dispatch()
+        spans.follow_profiler()
         return eng
 
     def _try_schedule_naive(self) -> None:
