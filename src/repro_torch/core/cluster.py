@@ -45,6 +45,8 @@ caches and memoized ratios can never serve pre-mutation answers.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 from repro_torch.core.types import ClusterSpec, Job, NodeSpec
@@ -57,6 +59,18 @@ _MISS = object()   # cache sentinel (cached values may legitimately be None)
 def _job_shape(job: Job) -> tuple:
     """The fields placement feasibility depends on — the cache key."""
     return (job.num_gpus, job.gpu_type, job.req_cpus, job.req_mem_gb)
+
+
+class JobShape(NamedTuple):
+    """A ``_job_shape`` key with its fields named.  It equals and hashes as
+    the plain key, and the placement queries (``candidate_ways``,
+    ``find_placement``, ``num_ways_to_schedule``) read only these four
+    fields, so a shape stands in for any job of that shape there."""
+
+    num_gpus: int
+    gpu_type: str
+    req_cpus: int
+    req_mem_gb: float
 
 
 class ClusterState:

@@ -11,17 +11,19 @@ Two construction paths, bit-identical by contract (differential-pinned in
   reference, and the fallback when no field arrays are available;
 - a vectorized path over the engine's incrementally-maintained
   ``WindowFields`` views (``fields=...``): all arithmetic features become
-  whole-column numpy ops; only the placement-dependent ``ways`` query (one
-  memoized call per distinct job *shape*, not per job) and the non-numeric
-  gathers (``gpu_type`` strings, CPU/mem requests) stay per-job.  Float
-  results are identical because every vector op applies the same IEEE
-  operation to the same float64 operands the scalar loop used, in the same
-  order, before the single float32 store.
+  whole-column numpy ops; the placement- and type-dependent queries
+  (``ways``, free GPUs of the type, the type index) and the CPU/mem
+  requests run once per distinct job *shape* present in the window and
+  are gathered to rows by the shape-id column — no Python loop over rows.
+  Float results are identical because every vector op applies the same
+  IEEE operation to the same float64 operands the scalar loop used, in the
+  same order, before the single float32 store.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.cluster import ClusterState
 from repro_torch.core.prioritizer import WindowFields
 from repro_torch.core.types import Job
@@ -154,9 +156,12 @@ def _build_features_vec(
 ) -> np.ndarray:
     """Vectorized FBM over the engine's contiguous field arrays.  Scalars
     that the loop recomputed per job (cluster aggregates, queued demand)
-    are hoisted; per-job Python work shrinks to the placement-dependent
-    ``ways`` query (memoized per distinct job shape) and the non-numeric
-    gathers (``gpu_type``, CPU/mem requests) the field views don't carry."""
+    are hoisted; the shape-dependent columns are computed once per distinct
+    shape in the window (``fields.shape`` indexes ``fields.shapes``) and
+    gathered to rows, so the Python work follows the number of shapes, not
+    of rows.  While the span recorder is on it counts the build
+    (``rank.shape_path``) and the shapes it queried (``rank.shape_evals``).
+    ``jobs`` is read only for its length."""
     n = len(jobs)
     out = np.zeros((n, NUM_FEATURES), dtype=np.float32)
     if n == 0:
@@ -179,44 +184,52 @@ def _build_features_vec(
     gpus = fields.num_gpus
     wait = np.maximum(0.0, now - fields.submit_time)
 
-    # per-job placement queries: one memoized call per distinct shape
-    jt = [j.gpu_type for j in jobs]
-    ways = np.empty(n, dtype=np.float64)
-    shape_ways: dict[tuple, int] = {}
-    for k, j in enumerate(jobs):
-        key = (j.num_gpus, j.gpu_type, j.req_cpus, j.req_mem_gb)
-        w = shape_ways.get(key)
-        if w is None:
-            w = cluster.num_ways_to_schedule(j)
-            shape_ways[key] = w
-        ways[k] = w
-    free_t_map = {t: cluster.free_gpus_of_type(t) for t in set(jt)}
-    free_t = np.array([free_t_map[t] for t in jt], dtype=np.float64)
-    type_idx = np.array([tindex[t] for t in jt], dtype=np.float64)
-    req_cpus = np.array([j.req_cpus for j in jobs], dtype=np.float64)
-    req_mem = np.array([j.req_mem_gb for j in jobs], dtype=np.float64)
-    job_ids = np.array([j.job_id for j in jobs], dtype=np.float64)
+    # placement and type queries once per distinct shape in the window
+    # (the fields' ``shapes`` may hold many more shapes than the window
+    # has: only present ones run); the columns that depend on the shape
+    # alone are computed per shape and gathered to rows by ``inv``, the
+    # same elementwise operations on the same operands
+    present = np.unique(fields.shape)
+    inv = np.searchsorted(present, fields.shape)
+    shapes = [fields.shapes[s] for s in present.tolist()]
+    sp = spans.ACTIVE
+    if sp is not None:
+        sp.add(("rank.shape_path", 1), ("rank.shape_evals", len(shapes)))
+    free_s = np.array([cluster.free_gpus_of_type(s.gpu_type)
+                       for s in shapes], dtype=np.float64)
+    # a shape short of free placeable GPUs of its type has no placement, so
+    # no ways: the count is exact without the placement search
+    ways_s = np.array([0 if f < s.num_gpus
+                       else cluster.num_ways_to_schedule(s)
+                       for s, f in zip(shapes, free_s.tolist())],
+                      dtype=np.float64)
+    type_s = np.array([tindex[s.gpu_type] for s in shapes], dtype=np.float64)
+    cpus_s = np.array([s.req_cpus for s in shapes], dtype=np.float64)
+    mem_s = np.array([s.req_mem_gb for s in shapes], dtype=np.float64)
 
     fa = (total_free - gpus - (queued_demand - gpus)) / total_capacity
 
-    out[:, _IDX["job_id"]] = np.mod(job_ids, 1000.0) / 1000.0
+    out[:, _IDX["job_id"]] = np.mod(fields.job_id, 1000.0) / 1000.0
     out[:, _IDX["user"]] = np.mod(fields.user, 128.0) / 128.0
     out[:, _IDX["req_gpus"]] = _vnorm(gpus, 8.0)
     out[:, _IDX["vc"]] = fields.vc / 8.0
-    out[:, _IDX["gpu_type_idx"]] = type_idx / max(len(gpu_types), 1)
+    out[:, _IDX["gpu_type_idx"]] = (type_s / max(len(gpu_types), 1))[inv]
     out[:, _IDX["req_time"]] = _vnorm(rt, 8 * 3600.0)
     out[:, _IDX["submit_time"]] = _vnorm(wait, 3600.0)
-    out[:, _IDX["req_cpu"]] = _vnorm(req_cpus, 64.0)
-    out[:, _IDX["req_mem"]] = _vnorm(req_mem, 512.0)
+    out[:, _IDX["req_cpu"]] = _vnorm(cpus_s, 64.0)[inv]
+    out[:, _IDX["req_mem"]] = _vnorm(mem_s, 512.0)[inv]
     out[:, _IDX["free_nodes"]] = free_nodes / max(len(cluster.gpu_types), 1)
-    out[:, _IDX["can_schedule_now"]] = (ways > 0).astype(np.float32)
-    out[:, _IDX["num_ways_to_schedule"]] = ways / 4.0
-    out[:, _IDX["dsr"]] = _vnorm(gpus / np.maximum(free_t, 1.0), 1.0)
+    out[:, _IDX["can_schedule_now"]] = (ways_s > 0).astype(np.float32)[inv]
+    out[:, _IDX["num_ways_to_schedule"]] = (ways_s / 4.0)[inv]
+    out[:, _IDX["dsr"]] = _vnorm(gpus / np.maximum(free_s, 1.0)[inv], 1.0)
     out[:, _IDX["job_size"]] = _vnorm(gpus * rt, 8.0 * 3600.0 * 8.0)
     out[:, _IDX["urgency"]] = _vnorm(wait / np.maximum(rt, 60.0), 4.0)
     out[:, _IDX["future_avail"]] = np.clip(fa, -1.0, 1.0)
     out[:, _IDX["cff"]] = cff
-    # same NaN/inf guard as the scalar reference (identity on finite values)
+    # same NaN/inf guard as the scalar reference; it is the identity on
+    # finite values, so a window of finite rows skips its three passes
+    if np.isfinite(out).all():
+        return out
     return np.nan_to_num(out, nan=0.0, posinf=1.0, neginf=-1.0)
 
 

@@ -64,13 +64,16 @@ Span names (prefix ``rltune.``):
 ========================  ===============================================
 
 Counters: ``rank.decisions``, ``rank.futile`` (the head did not place and
-the backfill started nothing); ``milp.hits`` / ``milp.solves`` /
-``milp.greedy`` (requests with more than one way: the solution cache,
-HiGHS, the greedy choice without a solve); ``backfill.tried`` (candidates
-that reached a placement attempt) and ``backfill.failed`` (attempts that
-found no room); ``predict.param_uploads``; ``device.h2d_copies``,
-``device.h2d_bytes``, ``device.d2h_copies``, ``device.d2h_bytes`` (copies
-to and from a device other than the CPU).
+the backfill started nothing); ``rank.shape_path`` (feature builds that
+queried the cluster once per job shape, from the window's shape ids) and
+``rank.shape_evals`` (the distinct shapes those builds queried);
+``milp.hits`` / ``milp.solves`` / ``milp.greedy`` (requests with more than
+one way: the solution cache, HiGHS, the greedy choice without a solve);
+``backfill.tried`` (candidates that reached a placement attempt) and
+``backfill.failed`` (attempts that found no room);
+``predict.param_uploads``; ``device.h2d_copies``, ``device.h2d_bytes``,
+``device.d2h_copies``, ``device.d2h_bytes`` (copies to and from a device
+other than the CPU).
 
 This module imports nothing of the package: the engine imports it, and
 ``repro_torch.obs`` imports the engine.

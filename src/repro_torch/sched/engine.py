@@ -65,13 +65,13 @@ from typing import Iterable
 import numpy as np
 
 from repro_torch.core import spans
-from repro_torch.core.cluster import ClusterState, Placement, _job_shape
+from repro_torch.core.cluster import ClusterState, Placement
 from repro_torch.core.faults import FaultInjector, FaultModel
 from repro_torch.core.metrics import BatchResult
 from repro_torch.core.milp import choose_allocation
 from repro_torch.core.prioritizer import (  # noqa: F401  (PolicyPrioritizer
     PolicyPrioritizer,                # re-exported via repro_torch.sched)
-    Prioritizer, WindowFields)
+    Prioritizer, ShapeTable, WindowFields)
 from repro_torch.core.types import ClusterSpec, Job, JobState
 from repro_torch.lifecycle.machine import transition
 
@@ -85,22 +85,24 @@ def _pending_key(job: Job) -> tuple[float, int]:
 
 
 class _PendingFieldIndex:
-    """Contiguous float64 field arrays mirroring the sorted pending queue.
+    """Contiguous field arrays mirroring the sorted pending queue.
 
     Inserts/removals memmove the suffix (C-speed, amortized cheap next to
     the O(window) Python work they replace); the ranking window is then a
     free O(1) slice view per field, so batch scoring never re-gathers job
-    attributes.  Integer-valued fields (``num_gpus``, ``user``, ``vc``)
-    are stored as float64 — exact for any realistic value (< 2**53).
+    attributes.  Integer-valued fields (``num_gpus``, ``user``, ``vc``,
+    ``job_id``) are stored as float64 — exact for any realistic value
+    (< 2**53).
 
-    ``_sid`` carries a small-int **shape id** per job (interned
-    ``_job_shape`` key): placement feasibility is a pure function of
+    ``_sid`` carries a small-int **shape id** per job (``shapes`` interns
+    the ``_job_shape`` key): placement feasibility is a pure function of
     (shape, cluster version), so the deep-backfill scan can skip a
     shape it already saw fail at the current version without touching
-    the job object at all."""
+    the job object at all, and the feature build queries the cluster
+    once per distinct shape in the window."""
 
     __slots__ = ("n", "_cap", "_st", "_rt", "_est", "_gpus", "_user", "_vc",
-                 "_sid", "shape_ids")
+                 "_jid", "_sid", "shapes")
 
     def __init__(self, cap: int = 256):
         self.n = 0
@@ -111,20 +113,13 @@ class _PendingFieldIndex:
         self._gpus = np.empty(cap, dtype=np.float64)
         self._user = np.empty(cap, dtype=np.float64)
         self._vc = np.empty(cap, dtype=np.float64)
-        self._sid = np.empty(cap, dtype=np.float64)
-        self.shape_ids: dict[tuple, int] = {}
+        self._jid = np.empty(cap, dtype=np.float64)
+        self._sid = np.empty(cap, dtype=np.intp)
+        self.shapes = ShapeTable()
 
     def _arrays(self):
         return (self._st, self._rt, self._est, self._gpus, self._user,
-                self._vc, self._sid)
-
-    def _shape_id(self, job: Job) -> int:
-        key = _job_shape(job)
-        sid = self.shape_ids.get(key)
-        if sid is None:
-            sid = len(self.shape_ids)
-            self.shape_ids[key] = sid
-        return sid
+                self._vc, self._jid, self._sid)
 
     def insert(self, idx: int, job: Job) -> None:
         n = self.n
@@ -132,15 +127,15 @@ class _PendingFieldIndex:
             self._cap *= 2
             grown = []
             for a in self._arrays():
-                g = np.empty(self._cap, dtype=np.float64)
+                g = np.empty(self._cap, dtype=a.dtype)
                 g[:n] = a[:n]
                 grown.append(g)
             (self._st, self._rt, self._est, self._gpus, self._user,
-             self._vc, self._sid) = grown
+             self._vc, self._jid, self._sid) = grown
         for a, v in zip(self._arrays(),
                         (job.submit_time, job.runtime, job.est_runtime,
-                         job.num_gpus, job.user, job.vc,
-                         self._shape_id(job))):
+                         job.num_gpus, job.user, job.vc, job.job_id,
+                         self.shapes.intern(job))):
             a[idx + 1:n + 1] = a[idx:n]
             a[idx] = v
         self.n = n + 1
@@ -154,7 +149,8 @@ class _PendingFieldIndex:
     def window(self, w: int) -> WindowFields:
         w = min(w, self.n)
         return WindowFields(self._st[:w], self._rt[:w], self._est[:w],
-                            self._gpus[:w], self._user[:w], self._vc[:w])
+                            self._gpus[:w], self._user[:w], self._vc[:w],
+                            self._jid[:w], self._sid[:w], self.shapes.shapes)
 
 
 class EngineHooks:

@@ -233,9 +233,13 @@ def test_counters_agree_with_the_engine(program, monkeypatch):
     assert c["backfill.tried"] - c["backfill.failed"] == backfills > 0
     assert c["backfill.failed"] >= 0
     assert c["predict.param_uploads"] > 0
+    # every ranking builds its features once, from the window's shape ids
+    assert c["rank.shape_path"] == decisions
+    assert c["rank.shape_path"] <= c["rank.shape_evals"]
     assert set(c) <= {"rank.decisions", "rank.futile", "milp.hits",
                       "milp.solves", "milp.greedy", "backfill.tried",
-                      "backfill.failed", "predict.param_uploads"}
+                      "backfill.failed", "predict.param_uploads",
+                      "rank.shape_path", "rank.shape_evals"}
     # a CPU engine copies nothing to a card
     assert not any(k.startswith("device.") for k in c)
 
